@@ -1,0 +1,116 @@
+"""Port parity: block-matching flow (the plain version of the CUDA kernel A)
+and the MGP hop.
+
+Tolerances:
+- flow: the MGP box-shift tolerance of tests/test_mgp.py (mean-flow-in-box
+  differs by < 0.05 px on average and < 0.5 px at most). MGP consumes only
+  box means, and the port computes the cost volume in float32 where the
+  JAX XLA path squares and box-sums in bf16, so fields are not bitwise equal.
+- mean_flow_in_boxes / _propagate_hop on an identical flow field: 1e-4 px
+  (integral-image sums of up to a few thousand float32 terms).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vdetlib_tpu.data.synth import SynthConfig, make_video
+from vdetlib_tpu.kernels import flow as jflow
+from vdetlib_tpu.video.mgp import _propagate_hop as j_hop
+from vdetlib_tpu_torch.kernels import flow as tflow
+from vdetlib_tpu_torch.kernels import flow_level as kl
+from vdetlib_tpu_torch.video.mgp import _propagate_hop
+
+torch.set_num_threads(2)
+
+HW = (96, 128)
+
+
+@pytest.fixture(scope="module")
+def sv():
+    return make_video(SynthConfig(num_frames=6, height=HW[0], width=HW[1], num_classes=4, seed=3))
+
+
+def _shift_err(f_t, f_j, boxes, scale):
+    """|box-mean shift difference| over (P, K) boxes at ``scale`` of full res."""
+    b = jnp.asarray(boxes) * scale
+    v = jnp.ones(b.shape[:2], bool)
+    want = np.asarray(jax.vmap(jflow.mean_flow_in_boxes)(jnp.asarray(f_j), b, v))
+    got = tflow.mean_flow_in_boxes(torch.from_numpy(f_t), torch.from_numpy(np.array(b)),
+                                   torch.from_numpy(np.array(v))).numpy()
+    return np.abs(got - want)
+
+
+def test_flow_level_matches_jax_box_shifts(sv):
+    gray = jflow._avg_pool2(jflow._avg_pool2(jflow.to_gray(jnp.asarray(sv.frames))))
+    gray = gray.astype(jnp.bfloat16)
+    i1, i2 = gray[:-1], gray[1:]
+    want = np.asarray(jax.vmap(lambda a, b: jflow._flow_level(a, b, 5, 3, 0.08))(i1, i2))
+    t1 = torch.from_numpy(np.array(i1.astype(jnp.float32))).to(torch.bfloat16)
+    t2 = torch.from_numpy(np.array(i2.astype(jnp.float32))).to(torch.bfloat16)
+    got = kl.flow_level(t1, t2, search=5, radius=3, temperature=0.08).numpy()
+    assert got.shape == want.shape == (5, 24, 32, 2)
+    boxes = sv.gt_boxes[:, :5].transpose(1, 0, 2)  # (P, K, 4) full-res
+    d = _shift_err(got, want, boxes, 0.25)
+    assert d.mean() < 0.05 and d.max() < 0.5, (d.mean(), d.max())
+    # the field really moves (a zero field would pass trivially)
+    assert np.abs(want).max() > 0.5
+
+
+def test_flow_video_fastest_matches_jax(sv):
+    want = np.asarray(jflow.flow_video(jnp.asarray(sv.frames), preset="fastest", upsample=False))
+    got = tflow.flow_video(torch.from_numpy(sv.frames), preset="fastest", upsample=False).numpy()
+    assert got.shape == want.shape == (5, 24, 32, 2)
+    boxes = sv.gt_boxes[:, :5].transpose(1, 0, 2)
+    d = _shift_err(got, want, boxes, tflow.flow_coord_scale("fastest"))
+    assert d.mean() < 0.05 and d.max() < 0.5, (d.mean(), d.max())
+
+
+def test_flow_video_accurate_not_ported(sv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tflow.flow_video(torch.from_numpy(sv.frames), preset="accurate")
+
+
+def test_gray_pool_and_box_mean_match_jax(sv):
+    g_j = np.asarray(jflow._avg_pool2(jflow.to_gray(jnp.asarray(sv.frames))))
+    g_t = tflow._avg_pool2(tflow.to_gray(torch.from_numpy(sv.frames))).numpy()
+    np.testing.assert_allclose(g_t, g_j, atol=1e-4, rtol=0)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 17, 23)).astype(np.float32)
+    np.testing.assert_allclose(
+        tflow._box_mean(torch.from_numpy(x), 3).numpy(),
+        np.asarray(jflow._box_mean(jnp.asarray(x), 3)), atol=1e-5, rtol=0,
+    )
+
+
+@pytest.mark.parametrize("coord_scale", [1.0, 0.25])
+def test_mean_flow_and_propagate_hop_match_jax(coord_scale):
+    rng = np.random.default_rng(1)
+    h, w = (24, 32) if coord_scale < 1 else HW
+    flow = rng.normal(0, 3, (3, h, w, 2)).astype(np.float32)
+    N = 20
+    x1 = rng.uniform(-20, HW[1], (3, N))
+    y1 = rng.uniform(-20, HW[0], (3, N))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(0, 80, (3, N)), y1 + rng.uniform(0, 80, (3, N))],
+                     -1).astype(np.float32)  # some boxes leave the image
+    mask = rng.uniform(size=(3, N)) > 0.3
+    want = np.asarray(jax.vmap(lambda f, b, m: j_hop(f, b, m, coord_scale))(
+        jnp.asarray(flow), jnp.asarray(boxes), jnp.asarray(mask)))
+    got = _propagate_hop(torch.from_numpy(flow), torch.from_numpy(boxes),
+                         torch.from_numpy(mask), coord_scale).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    # invalid boxes do not move
+    np.testing.assert_array_equal(got[~mask], boxes[~mask])
+
+
+def test_wrapper_takes_plain_version_on_cpu_and_counts_nothing():
+    a = torch.rand(2, 10, 12).to(torch.bfloat16)
+    b = torch.rand(2, 10, 12).to(torch.bfloat16)
+    before = kl.flow_level.launches
+    got = kl.flow_level(a, b)
+    assert kl.flow_level.launches == before
+    torch.testing.assert_close(got, kl._flow_level(a, b), atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        kl.flow_level(a.to("meta"), b.to("meta"))

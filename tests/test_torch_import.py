@@ -1,0 +1,82 @@
+"""The port imports without JAX: every module of vdetlib_tpu_torch, the host
+modules of vdetlib_tpu it reuses, and chip_smoke.py load in a process where
+jax, flax, optax and orbax cannot be imported, and no source file of the
+package names them in an import statement."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "vdetlib_tpu_torch"
+MODULES = sorted(
+    "vdetlib_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+    for p in PKG.rglob("*.py")
+    if p.name != "__init__.py"
+)
+# reused from the JAX package (host-only), and the card's smoke script
+EXTRA = ["vdetlib_tpu.protos.arrays", "vdetlib_tpu.data.synth", "chip_smoke"]
+
+_BLOCKER = """
+import importlib, sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import vdetlib_tpu_torch
+for m in sys.argv[1:]:
+    importlib.import_module(m)
+assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax") for k in sys.modules)
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def test_slice_modules_listed():
+    """The package holds every module of the slice (a rename would hide one)."""
+    for m in (
+        "geometry.boxes", "nn.backbone", "nn.heads", "nn.detector", "nn.presets",
+        "nn.tracker_net", "video.detect", "video.mgp", "video.track", "video.rescore",
+        "video.link", "kernels.flow", "kernels.flow_level", "kernels.nms",
+        "kernels.nms_grouped", "kernels.seq_nms", "kernels.build", "pipeline.fused",
+        "weights",
+    ):
+        assert "vdetlib_tpu_torch." + m in MODULES, m
+
+
+def test_imports_with_jax_blocked():
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, *MODULES, *EXTRA],
+        capture_output=True, text=True, cwd=PKG.parent, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == f"ok {len(MODULES) + len(EXTRA)}"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"],
+                         ids=lambda p: p.name)
+def test_no_jax_import_statement(path):
+    src = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b", src, re.M), path
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without a CUDA device the smoke script exits nonzero and prints no
+    result, from the repository and from a directory holding only itself."""
+    import shutil
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(PKG.parent / "chip_smoke.py", alone)
+    for script, cwd in ((PKG.parent / "chip_smoke.py", PKG.parent), (alone, tmp_path)):
+        res = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                             cwd=cwd, timeout=120)
+        assert res.returncode != 0 and res.stdout == "", (script, res.stdout, res.stderr)

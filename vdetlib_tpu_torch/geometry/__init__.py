@@ -1,0 +1,10 @@
+from vdetlib_tpu_torch.geometry.boxes import (  # noqa: F401
+    LEGACY_OFFSET,
+    apply_deltas,
+    box_area,
+    box_center,
+    box_wh,
+    clip_boxes,
+    pairwise_iou,
+    shift_boxes,
+)

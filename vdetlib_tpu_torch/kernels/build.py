@@ -1,0 +1,111 @@
+"""Build the hand-written CUDA kernels of ``csrc/`` at first use; load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+with ``nvcc`` into ``_build/lib<name>-<hash>.so`` (seconds, against minutes
+for a source that includes PyTorch's headers). The hash covers the source
+and the flags, so an edited kernel rebuilds and an unchanged one is reused;
+delete ``vdetlib_tpu_torch/_build/`` to force a rebuild. Nothing here runs
+at import time: the CPU tests import every module on a machine with no
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills into the build log
+)
+
+# every kernel's C entry point: name → (ctypes argtypes); restype is c_int
+# (the cudaGetLastError() code after the launch)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+KERNELS = {
+    # flow_level(i1, i2, out, P, H, W, tile_h, search, radius, temperature, stream)
+    "flow_level": (("vdet_flow_level", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)), ()),
+    # nms_grouped(boxes, scores, valid, groups, keep, B, N, thresh, offset, stream).
+    # No FMA contraction: keep sets are threshold decisions on an IoU whose
+    # op order must round exactly like the reference's.
+    "nms_grouped": (
+        ("vdet_nms_grouped", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P)),
+        ("-fmad=false",),
+    ),
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc``, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built on a "
+            "machine with the CUDA toolkit"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s shared library lives for the current source."""
+    (_, extra) = KERNELS[name]
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    flags = " ".join(NVCC_FLAGS + extra).encode()
+    digest = hashlib.sha256(src + b"\0" + flags).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for this exact source exists."""
+    so = library_path(name)
+    if so.is_file():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    (_, extra) = KERNELS[name]
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{res.stdout}\n{res.stderr}")
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str):
+    """Build (if needed) and load kernel ``name``; returns its typed C function."""
+    ((symbol, argtypes), _) = KERNELS[name]
+    lib = ctypes.CDLL(str(build(name)))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_log(name: str) -> str:
+    """ptxas report of the last build of ``name`` (empty if none)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if a kernel's launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

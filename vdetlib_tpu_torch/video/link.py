@@ -1,0 +1,44 @@
+"""Seq-NMS paths as tubelets — counterpart of ``vdetlib_tpu/video/link.py``.
+
+Only the numpy ``tubelets_from_path_ids`` is ported here (the JAX module
+imports jax at load time); the staged link stage is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def tubelets_from_path_ids(boxes, out_scores, path_ids, fids, video: str,
+                           first_class: int = 1) -> dict:
+    """Extract seq-NMS paths as a track_proto (one track per (class, path)).
+
+    boxes (T, N, 4); out_scores/path_ids (L, T, N) per-class seq-NMS scores
+    and path ids (-1 = none); lane ``l`` is class ``first_class + l``.
+    """
+    boxes = np.asarray(boxes)
+    out_scores = np.asarray(out_scores)
+    path_ids = np.asarray(path_ids)
+    tracks = []
+    L, T = path_ids.shape[:2]
+    for lane in range(L):
+        c = first_class + lane
+        pids = path_ids[lane]
+        for pid in range(int(pids.max()) + 1 if pids.size else 0):
+            entries = []
+            for t in range(T):
+                ns = np.nonzero(pids[t] == pid)[0]
+                if ns.size == 0:
+                    continue
+                n = int(ns[0])
+                entries.append(
+                    {
+                        "frame": int(fids[t]),
+                        "bbox": [float(v) for v in boxes[t, n]],
+                        "score": float(out_scores[lane, t, n]),
+                        "class_index": c,
+                    }
+                )
+            if entries:
+                tracks.append(entries)
+    return {"video": video, "method": "seq_nms", "tracks": tracks}
