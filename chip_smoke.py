@@ -17,27 +17,43 @@ Phases, each synchronised and each fatal on failure:
    groups; C, batched NMS: the stream's 960 problems (32 frames × 30
    classes) of 64 slots; D, sorted NMS: 1,920 problems (64 frames × 30
    classes) of 512 slots. The NMS problems hold ties, invalid and padded
-   slots, and their keep sets must be identical;
-4. reference: the tiny float32 fused pipeline and the tiny float32 stream
-   on the card equal the same runs on the CPU (plain kernel versions) within
-   the port's cross-framework bounds (bool fields exact, path ids < 1% of
-   slots, boxes 0.5 px, scores 0.01; stream track segments on the same
-   frames);
+   slots, and their keep sets must be identical; E, resize + normalize: 96
+   native 360×480 frames to 240×320 and 240×320 frames to the pyramid's
+   176×240 and 304×400, abs <= 1e-3; F, tracker scan, on the staged
+   tracker's features (48 × 90×120×96 bf16): one-step clips (T = 2, anchors
+   at frame 0 and at frame 1, bf16 and float32 features; boxes <= 1e-3 px,
+   peaks <= 1e-4, alive equal), a 16-step rollout (alive equal, live boxes
+   < 0.1 px), both again at search windows of Q = 12 and 20 bins, and the
+   48-step round (printed, not gated);
+4. reference: the tiny float32 fused pipeline (its tracker scan is kernel F
+   on the card) and the tiny float32 stream on the card equal the same runs
+   on the CPU (plain kernel versions) within the port's cross-framework
+   bounds (bool fields exact, path ids < 1% of slots, boxes 0.5 px, scores
+   0.01; stream track segments on the same frames);
 5. fused slice: the ``base`` detector (C=31) and the default tracker with
    seeded random weights run ``pad_snippet`` → ``make_fused_pipeline`` →
-   ``fused_to_protos`` at 240×320 over three synthetic videos; kernels A and
-   B must launch;
+   ``fused_to_protos`` at 240×320 over three synthetic videos; kernels A, B
+   and F must launch;
 6. stream: the same models run ``stream_video`` → ``stream_to_protos`` at
    the stream tool's defaults (chunk 32, 64 proposals, 16 track slots) over
    videos of 96 and 100 frames (the second ends in a partial chunk of 4);
    kernels A, B and C must launch;
 7. frame NMS: ``frame_nms(backend="pallas")`` over synthetic protos of 64
    frames × 30 classes equals the ``host`` backend at 512 boxes (kernel D)
-   and at 128 (kernel C).
+   and at 128 (kernel C);
+8. staged detect → track: the same models through the stages' entry
+   points at the detect and track tools' defaults, frames in memory:
+   ``det_vid`` with ``device_resize`` over 96 native 360×480 frames with 128
+   proposals each (batches of 8 resized to 240×320 by kernel E), ``det_vid``
+   with the pyramid (0.75, 1.0, 1.25) over 96 frames at 240×320 (E for 0.75
+   and 1.25), and ``track_from_det`` over the first det_proto (32 tracks, 8
+   anchors a round, stride 2; kernel F once per round); kernels E and F
+   must launch.
 
-Around each of phases 5–7 the kernels' launch counters are zeroed just
+Around each of phases 5–8 the kernels' launch counters are zeroed just
 before and read just after; a kernel's ``launches`` in the record is the
-count from its own path (A, B: fused slice; C: stream; D: frame NMS).
+count from its own path (A, B: fused slice; C: stream; D: frame NMS; E, F:
+staged path).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -47,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -61,6 +78,13 @@ R, C, B, A = 64, 31, 32, 8
 VIDEO_LENGTHS = (64, 50, 96)  # 50 pads to the 64-frame bucket
 STREAM_LENGTHS = (96, 100)  # 100 ends in a partial chunk of 4
 NMS_FRAMES = 64  # frame-NMS protos: 64 frames x 30 classes
+# the staged detect → track path: native frames resized on the card to
+# (H, W) in the detect tool's batches with its proposal budget, and the
+# pyramid's scaled sizes of (H, W)
+NATIVE_HW = (360, 480)
+STAGED_T, DETECT_B, STAGED_R = 96, 8, 128
+PYRAMID = (0.75, 1.0, 1.25)
+PYRAMID_HW = ((176, 240), (304, 400))
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -120,6 +144,24 @@ def synth(T, seed, h=H, w=W):
     from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
 
     return make_video(SynthConfig(num_frames=T, height=h, width=w, num_classes=4, seed=seed))
+
+
+@functools.lru_cache(maxsize=None)
+def staged_video(hw):
+    """The staged path's native video: STAGED_T frames of 8 moving objects."""
+    from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
+
+    return make_video(SynthConfig(num_frames=STAGED_T, height=hw[0], width=hw[1], num_objects=8,
+                                  num_classes=4, seed=20), video="staged")
+
+
+def staged_features(trk, frames, dev, stride=2, batch=16):
+    """Tracker features of every ``stride``-th frame, as ``track_from_det``
+    computes them at its defaults."""
+    from vdetlib_tpu_torch.video.track import tracker_features
+
+    x = torch.from_numpy(np.ascontiguousarray(frames[::stride])).to(dev)
+    return torch.cat([tracker_features(trk, x[i:i + batch]) for i in range(0, len(x), batch)])
 
 
 # ---------------------------------------------------------------- phase 3
@@ -278,9 +320,208 @@ def phase_kernels(dev):
              lambda *a: kd.nms_sorted_greedy(*a, th), args,
              "vdetlib_tpu/kernels/nms_pallas.py:354", greedy_iou_count(*args, th),
              iters=20, plain_iters=2)
+    records["resize_normalize"] = resize_case(dev, times)
+    records["track_scan"] = track_scan_case(dev, times)
     log("times (ms/call, CUDA events; bound from the H100's published peaks): "
         + "; ".join(times))
     return records
+
+
+def resize_case(dev, times):
+    """Kernel E against its plain version: the staged detector's 96 native
+    360×480 frames to 240×320, and the pyramid's 240×320 frames to 176×240
+    and 304×400 (abs <= 1e-3); timed at the path's call, a batch of 8."""
+    import torch.nn.functional as F
+
+    from vdetlib_tpu_torch.kernels import preprocess as ke
+
+    native = torch.from_numpy(staged_video(NATIVE_HW).frames).to(dev)
+    net = torch.from_numpy(synth(STAGED_T, seed=21).frames).to(dev)
+    err = 0.0
+    for frames, hw in ((native, (H, W)), (net, PYRAMID_HW[0]), (net, PYRAMID_HW[1])):
+        got = ke.fused_resize_normalize_kernel(frames, hw)
+        want = ke.fused_resize_normalize(frames, hw)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        log(f"kernel resize_normalize {tuple(frames.shape)} -> {hw}: max |diff| {e:.3e} "
+            f"(tolerance 1e-3)")
+        assert got.shape == want.shape and math.isfinite(e) and e <= 1e-3, \
+            "resize kernel disagrees"
+        err = max(err, e)
+    batch = native[:DETECT_B]
+    mean = torch.tensor(ke.PIXEL_MEAN, device=dev)
+
+    def library():  # the same half-pixel bilinear resize, then the mean
+        x = F.interpolate(batch.permute(0, 3, 1, 2).float(), size=(H, W), mode="bilinear",
+                          align_corners=False)
+        return x.permute(0, 2, 3, 1) - mean
+
+    lib_err = float((library() - ke.fused_resize_normalize(batch, (H, W))).abs().max())
+    ms = cuda_ms(lambda: ke.fused_resize_normalize_kernel(batch, (H, W)), iters=50)
+    plain_ms = cuda_ms(lambda: ke.fused_resize_normalize(batch, (H, W)), iters=20)
+    lib_ms = cuda_ms(library, iters=20)
+    n_out = batch.shape[0] * H * W * 3
+    # per output value: two taps per source column (2 mul + add, twice), the
+    # column blend (2 mul + add), the mean and the scale (2)
+    b_ms, b_by = bound(batch.numel() + n_out * 4, 11 * n_out)
+    times.append(f"resize_normalize kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} "
+                 f"bound {b_ms:.6f} ({tuple(batch.shape)} -> {(H, W)}; library vs plain "
+                 f"max |diff| {lib_err:.2e})")
+    return dict(name="resize_normalize", route="cuda",
+                source="vdetlib_tpu_torch/csrc/resize_normalize.cu",
+                replaces="vdetlib_tpu/kernels/preprocess.py:60", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def scan_ops(Q, P, C):
+    """float32 operations of one lane's scan step, from the plain version:
+    the pooling's two taps per row and column (9 per window value), the
+    bins' sums of squares (2 per value), the template products (2 per term),
+    the norm windows (P² adds per offset) and the softmax expectation (~12
+    per offset)."""
+    R = Q - P + 1
+    return 9 * Q * Q * C + 2 * Q * Q * C + 2 * R * R * P * P * C + R * R * (P * P + 12)
+
+
+def window_taps(lo, hi, size, Q, stride):
+    """Feature rows (or columns) that the bilinear taps of a Q-bin window
+    over [lo, hi) pixels read (nn/heads.py::_bilinear_weights, float64)."""
+    start, end = lo / stride, hi / stride
+    pos = np.clip(start + (np.arange(Q) + 0.5) * (end - start) / Q - 0.5, 0, size - 1)
+    g = np.floor(pos).astype(int)
+    return np.unique(np.concatenate([g, np.minimum(g + 1, size - 1)]))
+
+
+def scan_work(feats, anchor_ts, want, cfg):
+    """What the scan needs on this data: (feature positions read, lane-steps).
+
+    Only a lane-step that tracks (alive before it, not at its anchor) reads
+    features: the taps of its search window, around the box the step before
+    left (the plain run's outputs ``want``, indexed by frame). A position
+    read by several lanes at one frame counts once."""
+    fb, _, fa, bb, _, ba = want
+    T, h, w, _ = feats.shape
+    Q = cfg.search_pool
+    touched = np.zeros((T, h, w), bool)
+    n_live = 0
+    for step, boxes, alive in ((-1, fb, fa), (1, bb, ba)):
+        for t in range(T):
+            prev = t + step
+            if not 0 <= prev < T:
+                continue
+            for box in boxes[prev][alive[prev] & (anchor_ts != t)]:
+                cx, cy = (box[0] + box[2]) / 2, (box[1] + box[3]) / 2
+                hw_, hh_ = (box[2] - box[0]) * cfg.search_factor / 2, \
+                    (box[3] - box[1]) * cfg.search_factor / 2
+                rows = window_taps(cy - hh_, cy + hh_, h, Q, cfg.stride)
+                cols = window_taps(cx - hw_, cx + hw_, w, Q, cfg.stride)
+                touched[t][np.ix_(rows, cols)] = True
+                n_live += 1
+    return int(touched.sum()), n_live
+
+
+def track_scan_case(dev, times):
+    """Kernel F against its plain version on the staged tracker's features
+    (the base tracker on every 2nd frame of the 360×480 video: 48 × 90×120×96
+    bf16): one-step clips (T = 2, anchors at frame 0 and at frame 1; boxes
+    <= 1e-3 px, peaks <= 1e-4, alive equal) in bf16 and float32, a 16-step
+    rollout (alive equal, live boxes < 0.1 px), the same at two other search
+    windows (Q = 12 and 20), and the full 48-step round (printed, not
+    gated); timed at the round's shape, A = 8."""
+    from vdetlib_tpu_torch.kernels import track_scan as kf
+    from vdetlib_tpu_torch.nn.tracker_net import extract_template
+
+    _, trk, cfg = base_models(dev)
+    sv = staged_video(NATIVE_HW)
+    with torch.no_grad():
+        feats = staged_features(trk, sv.frames, dev)
+    Ts = feats.shape[0]
+    rng = np.random.default_rng(7)
+    K = sv.gt_boxes.shape[0]
+
+    def anchors(t_full, n):
+        k = rng.integers(0, K, n)
+        return (sv.gt_boxes[k, t_full] + rng.normal(0, 3, (n, 4))).astype(np.float32)
+
+    def run(f, ats, boxes, c):
+        ats = torch.as_tensor(ats, device=dev)
+        boxes = torch.as_tensor(boxes, device=dev)
+        tpl = extract_template(f[ats], boxes, c)
+        args = (f, ats, boxes, tpl, c, 0.5)
+        got = kf.track_scan_kernel(*args)
+        want = kf.track_scan_plain(*args)
+        torch.cuda.synchronize()
+        return [g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want], args
+
+    def one_steps(c, dtypes, every):
+        box_e = peak_e = 0.0
+        n = 0
+        for dtype in dtypes:
+            for j in range(0, Ts - 1, every):  # one-step clips over the video
+                ats = np.repeat([0, 1], 32)  # 32 anchors at each of the clip's two frames
+                boxes = np.concatenate([anchors(2 * j, 32), anchors(2 * j + 2, 32)])
+                got, want, _ = run(feats[j:j + 2].to(dtype), ats, boxes, c)
+                for g, w in zip(got[2::3], want[2::3]):
+                    assert np.array_equal(g, w), "track_scan kernel: one-step alive bits differ"
+                box_e = max(box_e, *(float(np.abs(g - w).max()) for g, w in
+                                     zip(got[0::3], want[0::3])))
+                peak_e = max(peak_e, *(float(np.abs(g - w).max()) for g, w in
+                                       zip(got[1::3], want[1::3])))
+                n += 64
+        return box_e, peak_e, n
+
+    def rollout(T_r, c):
+        ats = rng.integers(0, T_r, A)
+        boxes = np.stack([anchors(2 * int(t), 1)[0] for t in ats])
+        got, want, args = run(feats[:T_r], ats, boxes, c)
+        alive_eq = float(np.mean([np.mean(g == w) for g, w in zip(got[2::3], want[2::3])]))
+        live = [w for w in want[2::3]]
+        box_err = max(float(np.abs(g - w)[m].max(initial=0.0))
+                      for g, w, m in zip(got[0::3], want[0::3], live))
+        conf_err = max(float(np.abs(g - w)[m].max(initial=0.0))
+                       for g, w, m in zip(got[1::3], want[1::3], live))
+        return alive_eq, box_err, conf_err, args, want
+
+    step_box, step_peak, n_steps = one_steps(cfg, (torch.bfloat16, torch.float32), 12)
+    log(f"kernel track_scan one step ({n_steps} lanes in T=2 clips, bf16 and float32 "
+        f"features): max box diff {step_box:.3e} px, max peak diff {step_peak:.3e} "
+        f"(tolerance 1e-3 px, 1e-4; alive equal)")
+    assert step_box <= 1e-3 and step_peak <= 1e-4, "track_scan kernel disagrees on one step"
+    alive_eq, box_err, conf_err, _, _ = rollout(16, cfg)
+    log(f"kernel track_scan 16-step rollout (A={A}): alive agreement {alive_eq:.4f}, live box "
+        f"diff {box_err:.3e} px, live conf diff {conf_err:.3e} (tolerance: alive equal, "
+        f"< 0.1 px, < 5e-3)")
+    assert alive_eq == 1.0 and box_err < 0.1 and conf_err < 5e-3, \
+        "track_scan kernel departs within 16 steps"
+    for factor in (1.5, 2.5):  # Q and P are the kernel's arguments
+        c = dataclasses.replace(cfg, search_factor=factor)
+        b_e, p_e, n = one_steps(c, (torch.bfloat16,), 24)
+        alive_eq, box_err, conf_err, _, _ = rollout(16, c)
+        log(f"kernel track_scan at Q={c.search_pool}, P={c.template_pool}: one step ({n} lanes) "
+            f"box diff {b_e:.3e} px, peak diff {p_e:.3e}; 16-step rollout alive agreement "
+            f"{alive_eq:.4f}, live box diff {box_err:.3e} px, live conf diff {conf_err:.3e} "
+            f"(tolerances as above)")
+        assert b_e <= 1e-3 and p_e <= 1e-4 and alive_eq == 1.0 and box_err < 0.1 \
+            and conf_err < 5e-3, f"track_scan kernel disagrees at Q={c.search_pool}"
+    alive_eq, box_err, conf_err, args, want = rollout(Ts, cfg)
+    log(f"kernel track_scan {Ts}-step round (A={A}, not gated): alive agreement {alive_eq:.4f}, "
+        f"live box diff {box_err:.3e} px, live conf diff {conf_err:.3e}")
+    ms = cuda_ms(lambda: kf.track_scan_kernel(*args), iters=10)
+    plain_ms = cuda_ms(lambda: kf.track_scan_plain(*args), iters=2, warmup=1)
+    f, ats, _, tpl, _, _ = args
+    Q, P, Cf = cfg.search_pool, cfg.template_pool, f.shape[-1]
+    n_pos, n_live = scan_work(f, ats.cpu().numpy(), want, cfg)
+    n_bytes = (n_pos * Cf * f.element_size() + tpl.numel() * 4 + A * 4 * 4
+               + 2 * Ts * A * (4 * 4 + 4 + 1))
+    b_ms, b_by = bound(n_bytes, n_live * scan_ops(Q, P, Cf))
+    times.append(f"track_scan kernel {ms:.4f} plain {plain_ms:.4f} bound {b_ms:.6f} "
+                 f"({Ts} steps x {2 * A} lanes over {tuple(f.shape)}: {n_live} lane-steps "
+                 f"track, reading {n_pos} of {Ts * f.shape[1] * f.shape[2]} feature positions, "
+                 f"{n_bytes / 1e6:.2f} MB)")
+    return dict(name="track_scan", route="cuda", source="vdetlib_tpu_torch/csrc/track_scan.cu",
+                replaces="vdetlib_tpu/kernels/track_pallas.py:230",
+                max_abs_err=max(step_box, step_peak), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -524,7 +765,7 @@ def phase_slice(dev, kernels, profile_dir=None):
             f"n_tracks {int(out.n_tracks)}, det slots {int(out.det_mask.sum())}, "
             f"paths {int(out.path_ids.max()) + 1}, proto dets {len(det_proto['detections'])}, "
             f"tubelets {len(track_proto['tracks'])}")
-    launches = read_counts(kernels, "fused slice", ("flow_level", "nms_grouped"))
+    launches = read_counts(kernels, "fused slice", ("flow_level", "nms_grouped", "track_scan"))
     peak = torch.cuda.max_memory_allocated()
     steady = sum(VIDEO_LENGTHS[1:]) / sum(times[1:])
     log(f"slice: {n_frames} frames in {sum(times):.3f} s = {n_frames / sum(times):.2f} frames/s "
@@ -552,10 +793,20 @@ def profile_one(run, out_dir, fname, prefix):
     with open(os.path.join(out_dir, fname), "w") as f:
         f.write(table)
     # host-side spans only: device time = the kernels launched inside the span
-    spans = [e for e in prof.key_averages() if e.key.startswith(prefix) and e.cpu_time_total > 0]
+    # by torch ops (a kernel launched through ctypes is not attributed to
+    # its span, so the hand-written kernels are listed on their own)
+    events = prof.key_averages()
+    spans = [e for e in events if e.key.startswith(prefix) and e.cpu_time_total > 0]
     for e in sorted(spans, key=lambda e: e.key):
         log(f"profile {e.key}: cpu {e.cpu_time_total / 1e3:.3f} ms, "
             f"device {e.device_time_total / 1e3:.3f} ms")
+    from vdetlib_tpu_torch.kernels.build import KERNELS
+
+    for e in events:
+        name = next((n for n in KERNELS if f"{n}_kernel" in e.key), None)
+        if name and e.device_time_total > 0:
+            log(f"profile kernel {name}: {e.count} launches, device "
+                f"{e.device_time_total / 1e3:.3f} ms")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -701,13 +952,118 @@ def phase_frame_nms(dev, kernels):
     return read_counts(kernels, "frame NMS", ("nms_sorted", "nms_batched"))
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def staged_box_proto(rois, sv):
+    """A box_proto of ``rois`` (T, R, 4), one list of proposals per frame."""
+    return {"video": sv.video, "boxes": [{"frame": int(fid), "bbox": [float(v) for v in r]}
+                                         for fid, rs in zip(sv.frame_ids, rois) for r in rs]}
+
+
+def check_det_proto(name, det_proto, hw, score_thresh):
+    """Finite boxes inside the (H, W) frame, real classes, scores in range."""
+    dets = det_proto["detections"]
+    assert len(dets) > 0, f"{name}: empty det_proto"
+    b = np.array([d["bbox"] for d in dets])
+    sc = np.array([d["scores"][0]["score"] for d in dets])
+    ci = np.array([d["scores"][0]["class_index"] for d in dets])
+    assert np.isfinite(b).all() and np.isfinite(sc).all(), f"{name}: non-finite"
+    assert b.min() >= 0 and b[:, 2].max() <= hw[1] + 1e-3 and b[:, 3].max() <= hw[0] + 1e-3, \
+        f"{name}: boxes outside the frame"
+    assert sc.min() >= score_thresh and sc.max() <= 1.0, f"{name}: scores out of range"
+    assert ci.min() >= 1 and ci.max() < C, f"{name}: class indices"
+    return sc
+
+
+def phase_staged(dev, kernels, profile_dir=None):
+    """The staged detect → track path with the base models through its entry
+    points: ``det_vid`` with ``device_resize`` over the native video,
+    ``det_vid`` with the pyramid at (H, W), and ``track_from_det`` at the
+    track tool's defaults over the first det_proto (kernels E and F launch).
+    The card has no cv2: the frames are handed over in memory."""
+    from collections import Counter
+
+    from vdetlib_tpu_torch.data.synth import vid_proto_in_memory
+    from vdetlib_tpu_torch.video.detect import DetectOptions, det_vid
+    from vdetlib_tpu_torch.video.track import TrackOptions, track_from_det
+
+    det, trk, trk_cfg = base_models(dev)
+    sv = staged_video(NATIVE_HW)
+    sv_net = synth(STAGED_T, seed=21)
+    vid, vid_net = vid_proto_in_memory(sv), vid_proto_in_memory(sv_net)
+    boxes = staged_box_proto(
+        make_rois(STAGED_T, seed=20, h=NATIVE_HW[0], w=NATIVE_HW[1], r=STAGED_R), sv)
+    boxes_net = staged_box_proto(make_rois(STAGED_T, seed=21, r=STAGED_R), sv_net)
+    dopts = DetectOptions()  # the detect tool's defaults: batch 8, 128 proposals, 240x320
+    assert (dopts.batch_size, dopts.max_rois, tuple(dopts.image_hw)) == (DETECT_B, STAGED_R, (H, W))
+    topts = TrackOptions()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    walls = {}
+    t0 = time.perf_counter()
+    det_proto = det_vid(det, vid, boxes, dataclasses.replace(dopts, device_resize=True),
+                        frames_u8=sv.frames)
+    torch.cuda.synchronize()
+    walls["det_vid (device resize)"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    pyr = det_vid(det, vid_net, boxes_net, dataclasses.replace(dopts, pyramid=PYRAMID),
+                  frames_u8=sv_net.frames)
+    torch.cuda.synchronize()
+    walls["det_vid (pyramid)"] = time.perf_counter() - t1
+    scores = check_det_proto("device resize", det_proto, NATIVE_HW, dopts.score_thresh)
+    check_det_proto("pyramid", pyr, (H, W), dopts.score_thresh)
+    # the pyramid's scores are maxima over its scales, 1.0 among them: each
+    # (frame, class) keeps at least the entries of the single scale
+    single = det_vid(det, vid_net, boxes_net, dopts, frames_u8=sv_net.frames)
+    n_pyr = Counter((d["frame"], d["scores"][0]["class_index"]) for d in pyr["detections"])
+    n_one = Counter((d["frame"], d["scores"][0]["class_index"]) for d in single["detections"])
+    assert all(n_pyr[k] >= v for k, v in n_one.items()), "pyramid below one scale"
+
+    # random weights put class scores near 1/C: when fewer detections than
+    # max_tracks reach anchor_thresh, lower it to the 95th percentile of the
+    # entries' scores, as phases 5 and 6 do, so that every round has anchors
+    thresh = topts.anchor_thresh
+    if (scores >= thresh).sum() < topts.max_tracks:
+        thresh = float(np.quantile(scores, 0.95))
+        log(f"{int((scores >= topts.anchor_thresh).sum())} detections reach anchor_thresh="
+            f"{topts.anchor_thresh} with random weights (max {scores.max():.4f}); "
+            f"anchor_thresh lowered to {thresh:.6f}")
+    opts = dataclasses.replace(topts, anchor_thresh=thresh)
+    t2 = time.perf_counter()
+    track = track_from_det(trk, vid, det_proto, trk_cfg, opts, frames_u8=sv.frames)
+    torch.cuda.synchronize()
+    walls["track_from_det"] = time.perf_counter() - t2
+    tracks = track["tracks"]
+    assert 1 <= len(tracks) <= opts.max_tracks, "no tracks"
+    for tr in tracks:
+        assert all(math.isfinite(v) for e in tr for v in e["bbox"] + [e["score"]])
+        assert any(e["frame"] == e["anchor"] and e["score"] == 1.0 for e in tr), "anchor lost"
+    launches = read_counts(kernels, "staged detect → track", ("resize_normalize", "track_scan"))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"staged: {STAGED_T} native {NATIVE_HW[0]}x{NATIVE_HW[1]} frames, "
+        f"{len(det_proto['detections'])} det_proto entries (pyramid {len(pyr['detections'])}, "
+        f"single scale {len(single['detections'])}), {len(tracks)} tracks "
+        f"({sum(len(t) for t in tracks)} boxes); wall "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
+        + f"; peak device memory {peak / 2**20:.1f} MiB")
+    if profile_dir:
+        profile_one(lambda: track_from_det(trk, vid, det_proto, trk_cfg, opts,
+                                           frames_u8=sv.frames),
+                    profile_dir, "profile_staged.txt", "track.")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace one fused video and one stream video into DIR")
+                    help="trace one fused video, one stream video and the staged "
+                         "tracker into DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
@@ -717,6 +1073,8 @@ def main(argv=None) -> int:
     from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
     from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel
     from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
+    from vdetlib_tpu_torch.kernels.preprocess import fused_resize_normalize_kernel
+    from vdetlib_tpu_torch.kernels.track_scan import track_scan_kernel
     from vdetlib_tpu_torch.video.stream import StreamOptions
 
     dev = torch.device("cuda", 0)
@@ -739,7 +1097,9 @@ def main(argv=None) -> int:
     phase_reference(dev)
     torch.cuda.synchronize()
     kernels = {"flow_level": flow_level, "nms_grouped": nms_grouped_kernel,
-               "nms_batched": nms_batched_kernel, "nms_sorted": nms_sorted_kernel}
+               "nms_batched": nms_batched_kernel, "nms_sorted": nms_sorted_kernel,
+               "resize_normalize": fused_resize_normalize_kernel,
+               "track_scan": track_scan_kernel}
     slice_counts, fps, steady, peak = phase_slice(dev, kernels, args.profile)
     torch.cuda.synchronize()
     log(f"slice throughput on {card}: {fps:.2f} frames/s overall, {steady:.2f} frames/s "
@@ -751,9 +1111,12 @@ def main(argv=None) -> int:
         f"first chunk, {chunk_ms:.1f} ms per full chunk; peak memory {speak / 2**20:.1f} MiB")
     nms_counts = phase_frame_nms(dev, kernels)
     torch.cuda.synchronize()
+    staged_counts = phase_staged(dev, kernels, args.profile)
+    torch.cuda.synchronize()
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
-                "nms_batched": stream_counts, "nms_sorted": nms_counts}
+                "nms_batched": stream_counts, "nms_sorted": nms_counts,
+                "resize_normalize": staged_counts, "track_scan": staged_counts}
     for name, rec in records.items():
         rec["launches"] = own_path[name][name]
     print(json.dumps({"kernels": list(records.values())}))

@@ -51,6 +51,7 @@ def test_slice_modules_listed():
         "weights", "kernels.nms_batched", "kernels.nms_sorted", "video.stream",
         "video.frame_nms", "cli.stream", "cli.frame_nms", "protos.codec", "protos.accessors",
         "protos.arrays", "data.synth", "data.loader", "utils.log", "__main__",
+        "kernels.preprocess", "kernels.track_scan", "cli.detect", "cli.track", "utils.common",
     ):
         assert "vdetlib_tpu_torch." + m in MODULES, m
 

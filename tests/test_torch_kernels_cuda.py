@@ -12,7 +12,14 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
 - kernel C (batched NMS), the stream's 960 problems (32 frames × 30 classes)
   of 64 slots, and a ragged 7-slot case: keep sets identical;
 - kernel D (sorted NMS), 1,920 problems (64 frames × 30 classes) of 512
-  slots, and a 300-slot case: keep sets identical.
+  slots, and a 300-slot case: keep sets identical;
+- kernel E (resize + normalize), 8 native 360×480 frames to 240×320 and
+  240×320 frames to the pyramid's 176×240 and 304×400: abs <= 1e-3;
+- kernel F (tracker scan), over the base tracker's bf16 features of a
+  360×480 clip: one step (T = 2, anchors at frame 0 and 1; boxes <= 1e-3 px,
+  peaks <= 1e-4, alive equal) in bf16 and float32, and a 16-step rollout
+  (alive equal, live boxes < 0.1 px, live conf < 5e-3), at the default
+  pools (Q = 16, P = 8) and at Q = 12, Q = 20 and P = 6.
 
 Every test carries the ``cuda`` marker and needs a CUDA device; without one
 it skips (the decision is made in a fixture, so every worker collects the
@@ -20,6 +27,7 @@ same tests). The wrappers' CPU dispatch is covered by tests/test_torch_flow.py,
 tests/test_torch_nms.py and tests/test_torch_nms_batched.py.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,6 +38,8 @@ from vdetlib_tpu_torch.kernels import flow_level as kl
 from vdetlib_tpu_torch.kernels import nms_batched as kc
 from vdetlib_tpu_torch.kernels import nms_grouped as kb
 from vdetlib_tpu_torch.kernels import nms_sorted as kd
+from vdetlib_tpu_torch.kernels import preprocess as ke
+from vdetlib_tpu_torch.kernels import track_scan as kf
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +120,116 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kc.nms_batched_kernel(b[:, :129], s[:, :129], s[:, :129].bool(), 0.5)  # N > 128
     with pytest.raises(TypeError):
         kc.nms_batched_kernel(b[:, :8].double(), s[:, :8], s[:, :8].bool(), 0.5)
+
+
+@pytest.mark.parametrize("src, dst", [((360, 480), (240, 320)), ((240, 320), (176, 240)),
+                                      ((240, 320), (304, 400))])
+def test_resize_kernel_matches_plain_version(cuda, src, dst):
+    sv = make_video(SynthConfig(num_frames=8, height=src[0], width=src[1], seed=3))
+    frames = torch.from_numpy(sv.frames).to(cuda)
+    before = ke.fused_resize_normalize_kernel.launches
+    got = ke.fused_resize_normalize_kernel(frames, dst, pixel_scale=0.5)
+    torch.cuda.synchronize()
+    assert ke.fused_resize_normalize_kernel.launches == before + 1
+    want = ke.fused_resize_normalize(frames, dst, pixel_scale=0.5)
+    assert got.shape == want.shape == (8,) + dst + (3,)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.fixture(scope="module")
+def scan_inputs(cuda):
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+    from vdetlib_tpu_torch.video.track import tracker_features
+    from vdetlib_tpu_torch.weights import init_tracker
+
+    cfg = TrackerConfig()
+    trk = init_tracker(cfg, torch.Generator().manual_seed(1), device=cuda)
+    sv = make_video(SynthConfig(num_frames=32, height=360, width=480, num_objects=6, seed=4))
+    with torch.no_grad():
+        feats = tracker_features(trk, torch.from_numpy(sv.frames[::2].copy()).to(cuda))
+    return cfg, sv, feats
+
+
+def _scan_both(cfg, feats, ats, boxes, dev):
+    from vdetlib_tpu_torch.nn.tracker_net import extract_template
+
+    ats = torch.as_tensor(ats, device=dev)
+    boxes = torch.as_tensor(boxes, device=dev)
+    args = (feats, ats, boxes, extract_template(feats[ats], boxes, cfg), cfg, 0.5)
+    before = kf.track_scan_kernel.launches
+    got = kf.track_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert kf.track_scan_kernel.launches == before + 1
+    return [g.cpu() for g in got], [w.cpu() for w in kf.track_scan_plain(*args)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scan_kernel_one_step_matches_plain_version(cuda, scan_inputs, dtype):
+    cfg, sv, feats = scan_inputs
+    rng = np.random.default_rng(0)
+    k = rng.integers(0, sv.gt_boxes.shape[0], 32)
+    ats = np.repeat([0, 1], 16)
+    boxes = sv.gt_boxes[k, 2 + 2 * ats] + rng.normal(0, 3, (32, 4))
+    got, want = _scan_both(cfg, feats[1:3].to(dtype), ats, boxes.astype(np.float32), cuda)
+    for g, w in zip(got[2::3], want[2::3]):
+        assert torch.equal(g, w)
+    assert max(float((g - w).abs().max()) for g, w in zip(got[0::3], want[0::3])) <= 1e-3
+    assert max(float((g - w).abs().max()) for g, w in zip(got[1::3], want[1::3])) <= 1e-4
+
+
+def test_scan_kernel_rollout_matches_plain_version(cuda, scan_inputs):
+    cfg, sv, feats = scan_inputs
+    ats = np.array([0, 3, 7, 12, 15, 9, 5, 1])
+    boxes = sv.gt_boxes[np.arange(8) % sv.gt_boxes.shape[0], 2 * ats].astype(np.float32)
+    got, want = _scan_both(cfg, feats, ats, boxes, cuda)
+    for gb, gc, ga, wb, wc, wa in ((*got[:3], *want[:3]), (*got[3:], *want[3:])):
+        assert torch.equal(ga, wa)
+        assert float((gb - wb).abs()[wa].max()) < 0.1
+        assert float((gc - wc).abs()[wa].max()) < 5e-3
+
+
+@pytest.mark.parametrize("kw", [{"search_factor": 1.5}, {"search_factor": 2.5},
+                                {"template_pool": 6}], ids=["Q12", "Q20", "P6Q12"])
+def test_scan_kernel_matches_plain_version_at_other_pools(cuda, scan_inputs, kw):
+    """Q and P are the kernel's arguments: one step (bounds as above) and a
+    16-step rollout at a narrower and a wider search window and a smaller
+    template."""
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+
+    _, sv, feats = scan_inputs
+    cfg = TrackerConfig(**kw)
+    rng = np.random.default_rng(1)
+    k = rng.integers(0, sv.gt_boxes.shape[0], 32)
+    ats = np.repeat([0, 1], 16)
+    boxes = sv.gt_boxes[k, 2 + 2 * ats] + rng.normal(0, 3, (32, 4))
+    got, want = _scan_both(cfg, feats[1:3], ats, boxes.astype(np.float32), cuda)
+    for g, w in zip(got[2::3], want[2::3]):
+        assert torch.equal(g, w)
+    assert max(float((g - w).abs().max()) for g, w in zip(got[0::3], want[0::3])) <= 1e-3
+    assert max(float((g - w).abs().max()) for g, w in zip(got[1::3], want[1::3])) <= 1e-4
+    ats = np.array([0, 3, 7, 12, 15, 9, 5, 1])
+    boxes = sv.gt_boxes[np.arange(8) % sv.gt_boxes.shape[0], 2 * ats].astype(np.float32)
+    got, want = _scan_both(cfg, feats, ats, boxes, cuda)
+    for gb, gc, ga, wb, wc, wa in ((*got[:3], *want[:3]), (*got[3:], *want[3:])):
+        assert torch.equal(ga, wa)
+        assert float((gb - wb).abs()[wa].max()) < 0.1
+        assert float((gc - wc).abs()[wa].max()) < 5e-3
+
+
+def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda, scan_inputs):
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+
+    cfg, sv, feats = scan_inputs
+    ats = torch.zeros(1, dtype=torch.int64, device=cuda)
+    box = torch.tensor([[10.0, 10.0, 60.0, 60.0]], device=cuda)
+    tpl = torch.zeros((1, 8, 8, 96), device=cuda)
+    with pytest.raises(ValueError):
+        kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(num_scales=3), 0.5)
+    with pytest.raises(TypeError):
+        kf.track_scan_kernel(feats.half(), ats, box, tpl, cfg, 0.5)
+    with pytest.raises(ValueError):
+        kf.track_scan_kernel(feats, ats, box, tpl[:, :4], cfg, 0.5)
+    with pytest.raises(ValueError):  # Q = 4 < P = 8
+        kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(search_factor=0.5), 0.5)
+    with pytest.raises(ValueError):  # a 32x32x96 window exceeds shared memory
+        kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(search_factor=4.0), 0.5)

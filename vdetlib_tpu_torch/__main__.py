@@ -4,8 +4,10 @@ import importlib
 import sys
 
 TOOLS = {
+    "detect": "vdetlib_tpu_torch.cli.detect",
     "frame_nms": "vdetlib_tpu_torch.cli.frame_nms",
     "stream": "vdetlib_tpu_torch.cli.stream",
+    "track": "vdetlib_tpu_torch.cli.track",
 }
 
 

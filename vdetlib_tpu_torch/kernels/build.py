@@ -56,6 +56,21 @@ KERNELS = {
         ("vdet_nms_sorted", (_P, _P, _P, _I, _I, _F, _F, _P)),
         ("-fmad=false",),
     ),
+    # resize_normalize(frames, ylo, yhi, wylo, wyhi, xlo, xhi, wxlo, wxhi, out,
+    # B, H, W, Ho, Wo, mean0, mean1, mean2, scale, stream); products and sums
+    # round once each, in the plain version's order
+    "resize_normalize": (
+        ("vdet_resize_normalize", (_P,) * 10 + (_I,) * 5 + (_F,) * 4 + (_P,)),
+        ("-fmad=false",),
+    ),
+    # track_scan(feats, feats_bf16, anchor_ts, anchor_boxes, templates, out_box,
+    # out_conf, out_alive, T, A, h, w, C, Q, P, stride, factor, conf_thresh,
+    # stream); the window, bilinear weights and box update round as the plain
+    # version's ops do
+    "track_scan": (
+        ("vdet_track_scan", (_P, _I, _P, _P, _P, _P, _P, _P) + (_I,) * 8 + (_F, _F, _P)),
+        ("-fmad=false",),
+    ),
 }
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)

@@ -2,13 +2,15 @@
 ``vdetlib_tpu/protos/accessors.py`` (same names, same behaviour).
 
 Schemas: ``vid_proto`` {video, root_path, frames: [{frame (1-based), path}]};
-``det_proto`` {video, detections: [{frame, bbox, scores: [{class,
-class_index, score}]}]}.
+``box_proto`` {video, boxes: [{frame, bbox}]}; ``det_proto`` {video,
+detections: [{frame, bbox, scores: [{class, class_index, score}]}]};
+``track_proto`` {video, method, tracks: [[{frame, bbox, ...per-box meta}]]}.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Iterable, Optional, Sequence
 
 
 def _frame_entry(vid_proto: dict, frame_id: int) -> dict:
@@ -28,6 +30,11 @@ def frame_path_at(vid_proto: dict, frame_id: int) -> str:
     return os.path.join(vid_proto["root_path"], fr["path"])
 
 
+def boxes_at_frame(box_proto: dict, frame_id: int) -> list[list[float]]:
+    """All proposal bboxes at a frame, as [x1,y1,x2,y2] lists."""
+    return [b["bbox"] for b in box_proto["boxes"] if b["frame"] == frame_id]
+
+
 def det_class_indices(det_proto: dict) -> list[int]:
     """Sorted set of class indices present anywhere in the det_proto."""
     idxs = set()
@@ -35,3 +42,27 @@ def det_class_indices(det_proto: dict) -> list[int]:
         for s in d["scores"]:
             idxs.add(int(s["class_index"]))
     return sorted(idxs)
+
+
+def tracks_proto_from_boxes(
+    per_track_boxes: Iterable[Iterable[tuple[int, Sequence[float], float]]],
+    video: str,
+    method: str = "vdetlib_tpu_tracker",
+    anchors: Optional[Sequence[int]] = None,
+) -> dict:
+    """Build a track_proto from per-track (frame, bbox, score) tuples.
+
+    Each track's boxes are sorted by frame; ``anchor`` metadata marks the seed
+    frame; a track with no box is dropped."""
+    tracks = []
+    for ti, boxes in enumerate(per_track_boxes):
+        entries = []
+        for frame_id, bbox, score in boxes:
+            e = {"frame": int(frame_id), "bbox": [float(v) for v in bbox], "score": float(score)}
+            if anchors is not None:
+                e["anchor"] = int(anchors[ti])
+            entries.append(e)
+        entries.sort(key=lambda e: e["frame"])
+        if entries:
+            tracks.append(entries)
+    return {"video": video, "method": method, "tracks": tracks}

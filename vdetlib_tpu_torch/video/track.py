@@ -2,88 +2,65 @@
 
 Dense tracker features are computed once for all frames and shared by every
 anchor. :func:`track_batch` tracks A anchors forward and backward in ONE
-loop of T steps: step i advances the forward lanes at frame i and the
-backward lanes at frame T-1-i, so every NCC op runs once on 2A lanes (the
-JAX package's folded scan). The loop is a fixed-trip Python loop of tensor
-ops with self-gated updates: no host synchronisation per step.
+scan of T steps: step i advances the forward lanes at frame i and the
+backward lanes at frame T-1-i (the JAX package's folded scan). The scan is
+``kernels/track_scan.py``: kernel F on the card (one launch), its plain
+version (a fixed-trip loop of tensor ops, no host synchronisation per step)
+on the CPU and for configurations outside the kernel's contract.
+
+:func:`track_from_det` is the staged tracking stage: greedy anchor rounds
+on the host over a det_proto, each round tracked by :func:`track_batch`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
+from torch.profiler import record_function
 
-from vdetlib_tpu_torch.nn.heads import roi_align
-from vdetlib_tpu_torch.nn.tracker_net import (
-    TrackerConfig,
-    correlate,
-    extract_template,
-    search_window,
-    soft_argmax_2d,
+from vdetlib_tpu_torch.data.loader import FrameLoader
+from vdetlib_tpu_torch.kernels.track_scan import (
+    kernel_takes,
+    ncc_update,
+    track_scan_kernel,
+    track_scan_plain,
 )
+from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, extract_template
+from vdetlib_tpu_torch.protos.accessors import tracks_proto_from_boxes
+from vdetlib_tpu_torch.utils.common import iou as np_iou
+from vdetlib_tpu_torch.utils.log import StageMetrics
 
-__all__ = ["_track_one_direction", "ncc_update", "track_batch", "tracker_features"]
+__all__ = ["TrackOptions", "_candidate_dets", "_track_one_direction", "ncc_update",
+           "track_batch", "track_from_det", "tracker_features"]
+
+
+@dataclass(frozen=True)
+class TrackOptions:
+    """Same fields and defaults as the JAX ``TrackOptions``."""
+
+    max_tracks: int = 32
+    anchors_per_round: int = 8
+    anchor_thresh: float = 0.3  # min det score to seed a track
+    conf_thresh: float = 0.5  # tracker termination confidence
+    cover_thresh: float = 0.5  # det covered if IoU with a track box exceeds this
+    batch_size: int = 16  # frames per feature-extraction batch
+    image_hw: Optional[tuple] = None  # None = native frame size
+    # detection snapping (0.0 = off): not ported yet, > 0 raises
+    snap_weight: float = 0.0
+    snap_iou: float = 0.5
+    # advance the NCC scan every s-th frame only, interpolating the skipped
+    # frames (track_batch docstring); the tracker features are computed for
+    # the sampled frames only
+    frame_stride: int = 2
 
 
 def tracker_features(model, frames_u8):
     """(B, H, W, 3) uint8 → (B, h, w, C) dense tracker features."""
     x = frames_u8.float() / 255.0 - 0.5
     return model(x)
-
-
-def ncc_update(feat_t, box, template, cfg: TrackerConfig):
-    """One NCC tracking update per lane (no alive logic).
-
-    Args:
-      feat_t: (G, h, w, C) features of the target frame of each lane group.
-      box: (G, L, 4) current boxes; template: (G, L, P, P, C) normalized.
-    Returns:
-      (new box candidates (G, L, 4), peak confidences (G, L)).
-    """
-    Q = cfg.search_pool
-    P = cfg.template_pool
-    R = Q - P + 1
-    S = max(int(cfg.num_scales), 1)
-    scales = [cfg.scale_step ** (s - (S - 1) / 2.0) for s in range(S)]
-    G, L = box.shape[:2]
-    cx = 0.5 * (box[..., 0] + box[..., 2])
-    cy = 0.5 * (box[..., 1] + box[..., 3])
-    sboxes = []
-    for sc in scales:  # box resized by sc around its center
-        w = (box[..., 2] - box[..., 0]) * sc
-        h = (box[..., 3] - box[..., 1]) * sc
-        sboxes.append(torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1))
-    sbox = torch.stack(sboxes, dim=2)  # (G, L, S, 4)
-    win = search_window(sbox, cfg.search_factor)
-    # bf16 pooling, as the JAX scan does (NCC peaks are smooth enough)
-    sfeat = roi_align(
-        feat_t, win.reshape(G, L * S, 4), stride=cfg.stride, pool=Q,
-        compute_dtype=torch.bfloat16,
-    ).reshape(G, L, S, Q, Q, -1)
-    tpl = template[:, :, None].expand((G, L, S) + template.shape[-3:])
-    resp = correlate(tpl, sfeat)  # (G, L, S, R, R)
-    py, px, peak = soft_argmax_2d(resp)
-    wx = (win[..., 2] - win[..., 0]) / Q
-    wy = (win[..., 3] - win[..., 1]) / Q
-    dx = (px - (R - 1) / 2.0) * wx
-    dy = (py - (R - 1) / 2.0) * wy
-    cand = sbox + torch.stack([dx, dy, dx, dy], dim=-1)  # (G, L, S, 4)
-    if S == 1:
-        return cand[:, :, 0], peak[:, :, 0]
-    penalty = torch.tensor(
-        [1.0 if abs(sc - 1.0) < 1e-6 else cfg.scale_penalty for sc in scales],
-        dtype=torch.float32, device=box.device,
-    )
-    best = torch.argmax(peak * penalty, dim=-1, keepdim=True)  # first maximum
-    peak = torch.gather(peak, 2, best)[..., 0]
-    raw = torch.gather(cand, 2, best[..., None].expand(G, L, 1, 4))[:, :, 0]
-    # damp the scale change: winner's position, blended size
-    d = cfg.scale_damping
-    rcx = 0.5 * (raw[..., 0] + raw[..., 2])
-    rcy = 0.5 * (raw[..., 1] + raw[..., 3])
-    rw = (raw[..., 2] - raw[..., 0]) * d + (box[..., 2] - box[..., 0]) * (1 - d)
-    rh = (raw[..., 3] - raw[..., 1]) * d + (box[..., 3] - box[..., 1]) * (1 - d)
-    new_box = torch.stack([rcx - rw / 2, rcy - rh / 2, rcx + rw / 2, rcy + rh / 2], -1)
-    return new_box, peak
 
 
 def _track_one_direction(feats, anchor_t, anchor_box, template, cfg: TrackerConfig,
@@ -147,6 +124,12 @@ def track_batch(cfg: TrackerConfig, feats, anchor_ts, anchor_boxes, conf_thresh:
     ``feats`` already holds only every s-th frame (ceil(full_t/s) rows).
     ``valid_t`` (bucket-padded T): the count of REAL frames; the anchor snap
     and the interpolation neighbour clamp to the last real sampled frame.
+
+    The stride-1 scan is chosen by configuration, never after a failure: a
+    ``cfg`` in kernel F's contract (``kernels.track_scan.kernel_takes``: one
+    scale, frozen templates, the JAX package's gate for its Pallas scan) goes
+    to ``track_scan_kernel`` (kernel F on a CUDA tensor, the plain loop on a
+    CPU one); any other ``cfg`` (``num_scales`` > 1) runs ``track_scan_plain``.
     """
     if snap is not None:
         raise NotImplementedError("detection snapping is not ported yet (ROADMAP.md, Queue 1)")
@@ -199,38 +182,135 @@ def track_batch(cfg: TrackerConfig, feats, anchor_ts, anchor_boxes, conf_thresh:
     if feats_strided:
         raise ValueError("feats_strided requires frame_stride > 1")
     T = feats.shape[0]
-    A = anchor_ts.shape[0]
-    dev = feats.device
     templates = extract_template(feats[anchor_ts], anchor_boxes, cfg)  # (A, P, P, C)
-    tpl2 = templates[None].expand((2,) + templates.shape)
-    ar = torch.arange(T, device=dev)
-    ts_all = torch.stack([ar, ar.flip(0)], dim=1)  # step i → frames (i, T-1-i)
-    box_st = torch.zeros((2, A, 4), dtype=torch.float32, device=dev)
-    alive_st = torch.zeros((2, A), dtype=torch.bool, device=dev)
-    out_b, out_c, out_a = [], [], []
-    for i in range(T):
-        ts2 = ts_all[i]
-        started = ts2[:, None] == anchor_ts[None, :]  # (2, A)
-        box = torch.where(started[..., None], anchor_boxes[None], box_st)
-        alive2 = alive_st | started
-        feat2 = torch.stack([feats[i], feats[T - 1 - i]])
-        new_box, peak = ncc_update(feat2, box, tpl2, cfg)
-        track_now = alive2 & (ts2[:, None] != anchor_ts[None, :])
-        ok = peak > conf_thresh
-        new_alive = torch.where(track_now, alive2 & ok, alive2)
-        new_box = torch.where((track_now & ok)[..., None], new_box, box)
-        out_b.append(new_box)
-        out_c.append(torch.where(started, torch.ones_like(peak), peak))
-        out_a.append(started | new_alive)
-        box_st, alive_st = new_box, new_alive
-    # step axis: forward outputs are at frame i, backward outputs at T-1-i
-    ob, oc, oa = torch.stack(out_b, 1), torch.stack(out_c, 1), torch.stack(out_a, 1)  # (2, T, A, ...)
-    fb, fc, fa = ob[0].transpose(0, 1), oc[0].transpose(0, 1), oa[0].transpose(0, 1)
-    bb = ob[1].flip(0).transpose(0, 1)
-    bc = oc[1].flip(0).transpose(0, 1)
-    ba = oa[1].flip(0).transpose(0, 1)
-    use_f = ar[None, :] >= anchor_ts[:, None]  # (A, T)
+    scan = track_scan_kernel if kernel_takes(cfg) else track_scan_plain
+    fb, fc, fa, bb, bc, ba = (
+        v.transpose(0, 1)
+        for v in scan(feats, anchor_ts, anchor_boxes, templates, cfg, conf_thresh)
+    )  # each (A, T, ...)
+    use_f = torch.arange(T, device=feats.device)[None, :] >= anchor_ts[:, None]  # (A, T)
     boxes = torch.where(use_f[..., None], fb, bb)
     conf = torch.where(use_f, fc, bc)
     alive = torch.where(use_f, fa, ba)
     return boxes, conf, alive
+
+
+def _candidate_dets(det_proto, frame_index, min_score):
+    """Flatten det_proto → (frames_idx[N], boxes[N,4], scores[N]) numpy."""
+    fr, bx, sc = [], [], []
+    for d in det_proto["detections"]:
+        t = frame_index.get(int(d["frame"]))
+        if t is None:
+            continue
+        best = max((float(s["score"]) for s in d["scores"]), default=0.0)
+        if best < min_score:
+            continue
+        fr.append(t)
+        bx.append(d["bbox"])
+        sc.append(best)
+    if not fr:
+        return np.zeros(0, int), np.zeros((0, 4), np.float32), np.zeros(0, np.float32)
+    return np.asarray(fr), np.asarray(bx, np.float32), np.asarray(sc, np.float32)
+
+
+@torch.no_grad()
+def track_from_det(model, vid_proto: dict, det_proto: dict, cfg: TrackerConfig = TrackerConfig(),
+                   opts: TrackOptions = TrackOptions(), frames_u8: Optional[np.ndarray] = None) -> dict:
+    """Full tubelet-proposal stage: vid_proto + det_proto → track_proto.
+
+    The JAX function's stage, on the device of ``model``: tracker features of
+    the sampled frames in batches of ``opts.batch_size`` (the tail padded by
+    repetition), then greedy rounds on the host: pick up to
+    ``anchors_per_round`` mutually non-overlapping top-score uncovered
+    candidates (best score >= ``anchor_thresh``), track them in one
+    :func:`track_batch` call padded to a static A, and mark every candidate a
+    live track box covers (IoU > ``cover_thresh``) until ``max_tracks`` or
+    full coverage. ``frames_u8`` (T, H, W, 3) uint8 skips the frame files
+    (frames at ``opts.image_hw`` when it is set)."""
+    if opts.snap_weight > 0.0:
+        raise NotImplementedError("detection snapping is not ported yet (ROADMAP.md, Queue 1)")
+    metrics = StageMetrics("track")
+    frame_ids = [f["frame"] for f in vid_proto["frames"]]
+    frame_index = {f: i for i, f in enumerate(frame_ids)}
+    T = len(frame_ids)
+    dev = next(model.parameters()).device
+
+    # --- frame features (device, batched once), for the sampled frames only
+    loader = FrameLoader(vid_proto, target_hw=opts.image_hw, frames=frames_u8)
+    frames_u8 = np.stack([img for _, img, _ in loader.iter_frames()])
+    loader.close()
+    stride = int(opts.frame_stride)
+    feat_src = frames_u8[::stride] if stride > 1 else frames_u8
+    B = opts.batch_size
+    feats_list = []
+    with record_function("track.features"):
+        for s in range(0, len(feat_src), B):
+            chunk = torch.from_numpy(np.ascontiguousarray(feat_src[s:s + B])).to(dev)
+            pad = B - chunk.shape[0]
+            if pad:
+                chunk = torch.cat([chunk, chunk[-1:].expand((pad,) + chunk.shape[1:])])
+            feats_list.append(tracker_features(model, chunk)[:B - pad])
+        feats = torch.cat(feats_list)
+
+    # --- greedy anchor rounds (host)
+    cand_t, cand_boxes, cand_scores = _candidate_dets(det_proto, frame_index, opts.anchor_thresh)
+    covered = np.zeros(len(cand_t), dtype=bool)
+    all_boxes, all_conf, all_alive, all_anchor = [], [], [], []
+    while len(all_boxes) < opts.max_tracks and not covered.all():
+        # pick up to A mutually non-overlapping top candidates
+        order = np.argsort(-cand_scores, kind="stable")
+        picked = []
+        for i in order:
+            if covered[i]:
+                continue
+            clash = False
+            for j in picked:
+                if cand_t[j] == cand_t[i] and np_iou(
+                    cand_boxes[i:i + 1], cand_boxes[j:j + 1]
+                )[0, 0] > opts.cover_thresh:
+                    clash = True
+                    break
+            if not clash:
+                picked.append(int(i))
+            if len(picked) == min(opts.anchors_per_round, opts.max_tracks - len(all_boxes)):
+                break
+        if not picked:
+            break
+        A = opts.anchors_per_round
+        sel = (picked + [picked[-1]] * A)[:A]  # pad to static A
+        with record_function("track.scan"):
+            boxes, conf, alive = track_batch(
+                cfg, feats, torch.from_numpy(np.asarray(cand_t)[sel]).to(dev),
+                torch.from_numpy(cand_boxes[sel]).to(dev), opts.conf_thresh,
+                frame_stride=opts.frame_stride, feats_strided=stride > 1,
+                full_t=T if stride > 1 else None,
+            )
+            boxes, conf, alive = (x.cpu().numpy() for x in (boxes, conf, alive))
+        for k, i in enumerate(picked):
+            all_boxes.append(boxes[k])
+            all_conf.append(conf[k])
+            all_alive.append(alive[k])
+            all_anchor.append(int(frame_ids[cand_t[i]]))
+            covered[i] = True
+            # suppress candidates covered by this track
+            for t in range(T):
+                if not alive[k, t]:
+                    continue
+                same_t = cand_t == t
+                if not same_t.any():
+                    continue
+                m = np_iou(boxes[k, t:t + 1], cand_boxes[same_t])[0]
+                idx = np.nonzero(same_t)[0][m > opts.cover_thresh]
+                covered[idx] = True
+
+    per_track = [
+        [(frame_ids[t], boxes[t], float(conf[t])) for t in range(T) if alive[t]]
+        for boxes, conf, alive in zip(all_boxes, all_conf, all_alive)
+    ]
+    proto = tracks_proto_from_boxes(
+        per_track, vid_proto["video"], method="correlation_tracker", anchors=all_anchor
+    )
+    metrics.set("frames", T)
+    metrics.set("tracks", len(proto["tracks"]))
+    metrics.finish()
+    return proto
