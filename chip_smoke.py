@@ -12,9 +12,10 @@ Phases, each synchronised and each fatal on failure:
    ``vdetlib_tpu_torch/_build``) and loaded;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of its path, all timed with CUDA events beside their bound:
-   A, flow level: 255 pairs of 60×80 bf16, box-shift tolerance mean
-   < 0.05 px, max < 0.5 px; B, grouped NMS: 256 frames × 192 slots, 30 class
-   groups; C, batched NMS: the stream's 960 problems (32 frames × 30
+   A, flow level: 32, 63, 95 and 255 pairs of 60×80 bf16 (the stream's
+   chunk, the fused slice's buckets, a 256-frame video), box-shift
+   tolerance mean < 0.05 px, max < 0.5 px at each; B, grouped NMS: 256
+   frames × 192 slots, 30 class groups; C, batched NMS: the stream's 960 problems (32 frames × 30
    classes) of 64 slots; D, sorted NMS: 1,920 problems (64 frames × 30
    classes) of 512 slots. The NMS problems hold ties, invalid and padded
    slots, and their keep sets must be identical; E, resize + normalize: 96
@@ -78,6 +79,9 @@ R, C, B, A = 64, 31, 32, 8
 VIDEO_LENGTHS = (64, 50, 96)  # 50 pads to the 64-frame bucket
 STREAM_LENGTHS = (96, 100)  # 100 ends in a partial chunk of 4
 NMS_FRAMES = 64  # frame-NMS protos: 64 frames x 30 classes
+# kernel A's pair counts: the stream's full chunk (32), the fused slice's
+# two buckets (63, 95) and a 256-frame video (255, the record's time)
+FLOW_PAIRS = (32, 63, 95, 255)
 # the staged detect → track path: native frames resized on the card to
 # (H, W) in the detect tool's batches with its proposal budget, and the
 # pyramid's scaled sizes of (H, W)
@@ -230,53 +234,63 @@ def greedy_iou_count(boxes, scores, valid, thresh, chunk=128) -> int:
     return total
 
 
-def phase_kernels(dev):
-    """Kernels vs plain versions at their paths' shapes → kernel records."""
+def flow_case(dev, times):
+    """Kernel A against its plain version on the quarter-res gray pairs of a
+    256-frame video (the first P pairs), at the pair counts its paths launch
+    and at 255: box shifts within mean < 0.05, max < 0.5 full-res px at
+    every P; timed by CUDA events at every P, the plain version at 255."""
     from vdetlib_tpu_torch.kernels import flow as tflow
     from vdetlib_tpu_torch.kernels import flow_level as kl
-    from vdetlib_tpu_torch.kernels import nms_batched as kc
-    from vdetlib_tpu_torch.kernels import nms_grouped as kb
-    from vdetlib_tpu_torch.kernels import nms_sorted as kd
 
-    # kernel A: the quarter-res gray pairs of a 256-frame video
     sv = synth(256, seed=0)
     frames = torch.from_numpy(sv.frames).to(dev)
     gray = tflow._avg_pool2(tflow._avg_pool2(tflow.to_gray(frames))).to(torch.bfloat16)
-    i1, i2 = gray[:-1].contiguous(), gray[1:].contiguous()
-    got = kl.flow_level(i1, i2)
-    want = kl._flow_level(i1, i2)
-    torch.cuda.synchronize()
-    boxes = torch.from_numpy(sv.gt_boxes[:, :255].transpose(1, 0, 2).copy()).to(dev)
-    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
     scale = tflow.flow_coord_scale("fastest")
-    d = (tflow.mean_flow_in_boxes(got, boxes * scale, valid)
-         - tflow.mean_flow_in_boxes(want, boxes * scale, valid)).abs() / scale  # full-res px
-    flow_err, flow_mean = float(d.max()), float(d.mean())
-    field_err = float((got - want).abs().max())
-    log(f"kernel flow_level {tuple(i1.shape)} bf16: box-shift err mean {flow_mean:.6f} "
-        f"max {flow_err:.6f} px (tolerance mean < 0.05, max < 0.5); "
-        f"field max |diff| {field_err:.6f} cells")
-    assert math.isfinite(flow_err) and flow_mean < 0.05 and flow_err < 0.5, "flow kernel disagrees"
-    flow_ms = cuda_ms(lambda: kl.flow_level(i1, i2), iters=20)
-    flow_plain_ms = cuda_ms(lambda: kl._flow_level(i1, i2), iters=5)
+    search, radius = 5, 3  # flow_level's defaults, as the "fastest" preset calls it
     # operations per pixel and shift: the squared difference (2), the
     # separable 7x7 box sum (2 x 6 adds), the division by the area (1) and
     # the online soft-argmin (min, 2 sub, 2 mul, 2 exp, den: mul + add, fx
     # and fy: 2 mul + add each = 15)
-    P, Hq, Wq = i1.shape
-    search, radius = 5, 3  # flow_level's defaults, as the "fastest" preset calls it
     per_shift = 2 + 2 * (2 * radius) + 1 + 15
-    flow_bound = bound(i1.numel() * 2 * 2 + got.numel() * 4,
-                       P * Hq * Wq * (2 * search + 1) ** 2 * per_shift)
-    records = {
-        "flow_level": dict(
-            name="flow_level", route="cuda", source="vdetlib_tpu_torch/csrc/flow_level.cu",
-            replaces="vdetlib_tpu/kernels/flow_pallas.py:104", max_abs_err=flow_err,
-            ms=flow_ms, plain_ms=flow_plain_ms, bound_ms=flow_bound[0],
-            bound_by=flow_bound[1], library_ms=None),
-    }
-    times = [f"flow_level kernel {flow_ms:.4f} plain {flow_plain_ms:.4f} "
-             f"bound {flow_bound[0]:.4f}"]
+    ms_by_p, worst = {}, 0.0
+    for P in FLOW_PAIRS:
+        i1, i2 = gray[:P].contiguous(), gray[1:P + 1].contiguous()
+        got = kl.flow_level(i1, i2)
+        want = kl._flow_level(i1, i2)
+        torch.cuda.synchronize()
+        boxes = torch.from_numpy(sv.gt_boxes[:, :P].transpose(1, 0, 2).copy()).to(dev)
+        valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
+        d = (tflow.mean_flow_in_boxes(got, boxes * scale, valid)
+             - tflow.mean_flow_in_boxes(want, boxes * scale, valid)).abs() / scale  # full-res px
+        err, mean = float(d.max()), float(d.mean())
+        field_err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: kl.flow_level(i1, i2), iters=20)
+        _, Hq, Wq = i1.shape
+        b_ms, b_by = bound(i1.numel() * 2 * 2 + got.numel() * 4,
+                           P * Hq * Wq * (2 * search + 1) ** 2 * per_shift)
+        log(f"kernel flow_level P={P} {tuple(i1.shape)} bf16: {ms:.4f} ms (bound {b_ms:.6f} "
+            f"by {b_by}); box-shift err mean {mean:.6f} max {err:.6f} px (tolerance mean "
+            f"< 0.05, max < 0.5); field max |diff| {field_err:.6f} cells")
+        assert math.isfinite(err) and mean < 0.05 and err < 0.5, f"flow kernel disagrees at P={P}"
+        ms_by_p[P] = ms
+        worst = max(worst, err)
+    plain_ms = cuda_ms(lambda: kl._flow_level(i1, i2), iters=5)
+    times.append(f"flow_level kernel {ms:.4f} plain {plain_ms:.4f} bound {b_ms:.4f} "
+                 f"(P={P}; by P {ms_by_p})")
+    return dict(name="flow_level", route="cuda", source="vdetlib_tpu_torch/csrc/flow_level.cu",
+                replaces="vdetlib_tpu/kernels/flow_pallas.py:104", max_abs_err=worst, ms=ms,
+                ms_by_p=ms_by_p, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def phase_kernels(dev):
+    """Kernels vs plain versions at their paths' shapes → kernel records."""
+    from vdetlib_tpu_torch.kernels import nms_batched as kc
+    from vdetlib_tpu_torch.kernels import nms_grouped as kb
+    from vdetlib_tpu_torch.kernels import nms_sorted as kd
+
+    times = []
+    records = {"flow_level": flow_case(dev, times)}
 
     def nms_case(name, kernel, plain, args, replaces, iou_count, iters, plain_iters):
         """``args`` = boxes, scores, valid (, groups); keep sets must be identical."""

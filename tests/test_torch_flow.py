@@ -105,6 +105,25 @@ def test_mean_flow_and_propagate_hop_match_jax(coord_scale):
     np.testing.assert_array_equal(got[~mask], boxes[~mask])
 
 
+@pytest.mark.parametrize("search, radius", [(5, 3), (3, 1)])
+@pytest.mark.parametrize("P, H, W", [(1, 60, 80), (4, 60, 80), (32, 60, 80), (63, 60, 80),
+                                     (95, 60, 80), (255, 60, 80), (4, 120, 160), (1, 13, 37)])
+def test_kernel_launch_plan_fits_a_block(P, H, W, search, radius):
+    """The kernel's tile rows (computed here, launched on the card) fit a
+    block's shared memory at every path's shape, on an H100's 132 SMs."""
+    th = kl.tile_rows(P, H, W, search, radius, 132)
+    assert 1 <= th <= H
+    assert kl.smem_bytes(th, search, radius) <= kl.MAX_SMEM
+    if P >= 32:  # the paths' full calls fill the card: at least a block per SM
+        assert P * -(-W // kl.TILE_W) * -(-H // th) >= 132
+
+
+def test_kernel_launch_plan_rejects_windows_beyond_shared_memory():
+    assert kl.smem_bytes(1, 5, 3) < kl.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        kl.tile_rows(32, 60, 80, 200, 3, 132)
+
+
 def test_wrapper_takes_plain_version_on_cpu_and_counts_nothing():
     a = torch.rand(2, 10, 12).to(torch.bfloat16)
     b = torch.rand(2, 10, 12).to(torch.bfloat16)

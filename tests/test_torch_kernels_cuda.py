@@ -3,9 +3,11 @@
 At the shapes of the fused pipeline's main path (240×320 frames, the
 "fastest" flow preset and the MGP dedup at the bench budget):
 
-- kernel A (flow level), P=255 pairs of 60×80 bf16: the MGP box-shift
-  tolerance of tests/test_mgp.py (mean < 0.05 px, max < 0.5 px). Both compute
-  in float32; they differ only in summation order.
+- kernel A (flow level), P = 32 and 255 pairs of 60×80 bf16, 4 pairs of
+  120×160 and one ragged 13×37 pair, each at search/radius (5, 3) and
+  (3, 1): the MGP box-shift tolerance of tests/test_mgp.py (mean < 0.05 px,
+  max < 0.5 px). Both compute in float32; they differ in summation order
+  and in the kernel's pre-scaled exp2.
 - kernel B (grouped NMS), 256 frames of 192 slots with 30 class groups, score
   ties, duplicates, invalid and padded slots (``chip_smoke.nms_problem``, the
   smoke run's generator): keep sets identical;
@@ -26,6 +28,8 @@ it skips (the decision is made in a fixture, so every worker collects the
 same tests). The wrappers' CPU dispatch is covered by tests/test_torch_flow.py,
 tests/test_torch_nms.py and tests/test_torch_nms_batched.py.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -86,22 +90,58 @@ def test_sorted_nms_kernel_equals_plain_version(cuda, B, N):
     assert 0 < int(got.sum()) < int(valid.sum())
 
 
-def test_flow_kernel_matches_plain_version_box_shifts(cuda):
-    sv = make_video(SynthConfig(num_frames=256, height=240, width=320, num_classes=4, seed=0))
-    frames = torch.from_numpy(sv.frames).to(cuda)
-    gray = tflow._avg_pool2(tflow._avg_pool2(tflow.to_gray(frames))).to(torch.bfloat16)
+@functools.lru_cache(maxsize=None)
+def _flow_video():
+    return make_video(SynthConfig(num_frames=256, height=240, width=320, num_classes=4, seed=0))
+
+
+@pytest.mark.parametrize("search, radius", [(5, 3), (3, 1)])
+@pytest.mark.parametrize("P, H, W", [(32, 60, 80), (255, 60, 80), (4, 120, 160), (1, 13, 37)])
+def test_flow_kernel_matches_plain_version_box_shifts(cuda, P, H, W, search, radius):
+    """The stream's chunk and a 256-frame video at the "fastest" preset's
+    60×80, the stream's partial chunk at the "fast" preset's 120×160, and one
+    pair of a ragged tile (a 13×37 crop: neither side a multiple of 32);
+    (5, 3) is the kernel's compiled-in window, (3, 1) its run-time path."""
+    sv = _flow_video()
+    pool = 2 if H == 120 else 4
+    gray = tflow.to_gray(torch.from_numpy(sv.frames[:P + 1]).to(cuda))
+    for _ in range(pool // 2):
+        gray = tflow._avg_pool2(gray)
+    # the GT boxes on the flow grid; the crop's own boxes cover its edges
+    boxes = torch.from_numpy(sv.gt_boxes[:, :P].transpose(1, 0, 2).copy()).to(cuda) / pool
+    if gray.shape[1:] != (H, W):
+        gray = gray[:, 20:20 + H, 10:10 + W]
+        boxes = torch.tensor([[[0.0, 0.0, W - 1, H - 1], [0, 0, 8, 5], [W - 9, H - 6, W - 1, H - 1],
+                               [10, 3, 25, 10]]], device=cuda).expand(P, 4, 4)
+    gray = gray.to(torch.bfloat16)
     i1, i2 = gray[:-1].contiguous(), gray[1:].contiguous()
     before = kl.flow_level.launches
-    got = kl.flow_level(i1, i2)
+    got = kl.flow_level(i1, i2, search=search, radius=radius)
     torch.cuda.synchronize()
     assert kl.flow_level.launches == before + 1
-    want = kl._flow_level(i1, i2)
-    assert got.shape == want.shape == (255, 60, 80, 2)
-    boxes = torch.from_numpy(sv.gt_boxes[:, :255].transpose(1, 0, 2).copy()).to(cuda) * 0.25
+    want = kl._flow_level(i1, i2, search, radius)
+    assert got.shape == want.shape == (P, H, W, 2)
     valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=cuda)
     d = (tflow.mean_flow_in_boxes(got, boxes, valid)
-         - tflow.mean_flow_in_boxes(want, boxes, valid)).abs() * 4.0  # full-res px
+         - tflow.mean_flow_in_boxes(want, boxes, valid)).abs() * pool  # full-res px
     assert float(d.mean()) < 0.05 and float(d.max()) < 0.5, (float(d.mean()), float(d.max()))
+    assert float(want.abs().max()) > 0.5  # the field moves
+
+
+def test_flow_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """The kernel tiles the columns, so no width is too wide for it; it
+    refuses windows beyond a block's shared memory, more pairs than the grid
+    holds and negative windows."""
+    a = torch.zeros((2, 60, 80), dtype=torch.bfloat16, device=cuda)
+    before = kl.flow_level.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kl.flow_level(a, a, search=200)
+    with pytest.raises(ValueError):
+        kl.flow_level(a, a, radius=-1)
+    p = torch.zeros((kl.MAX_PAIRS + 1, 1, 1), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        kl.flow_level(p, p)
+    assert kl.flow_level.launches == before
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -16,6 +16,8 @@ tolerance (mean-flow-in-box, the only consumer), not bitwise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -73,11 +75,57 @@ def _flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0
     return torch.stack([fx / den, fy / den], dim=-1)
 
 
+# the kernel's launch (csrc/flow_level.cu): tiles of 32 columns, one warp per
+# dy (at most 32), the warps' partial states and both windows in shared memory
+TILE_W = 32
+MAX_SMEM = 232_448  # bytes of shared memory a block can use on Hopper
+MAX_PAIRS = 65_535  # the grid's second dimension
+# estimated time of a block, in rows of row sums: it computes th + 2r rows,
+# emits th (a soft-argmin over its dx: ~0.75 of a row's work) and spends
+# about 3 rows' time staging and merging; with these weights the plan picks
+# the fastest tile height swept on an H100 at 32, 63, 95 and 255 pairs
+EMIT_ROWS, FIXED_ROWS = 0.75, 3.0
+
+
+def smem_bytes(tile_h: int, search: int, radius: int) -> int:
+    """Dynamic shared memory of a block with ``tile_h`` output rows."""
+    nw = min(2 * search + 1, 32)
+    c1, r1 = TILE_W + 2 * radius, tile_h + 2 * radius
+    return 16 * nw * tile_h * TILE_W + 4 * (r1 * c1 + (r1 + 2 * search) * (c1 + 2 * search))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_rows(P: int, H: int, W: int, search: int, radius: int, sms: int) -> int:
+    """Output rows of a block's tile: the fewest estimated waves of blocks on
+    ``sms`` multiprocessors times a block's time, among the tiles whose
+    shared memory fits; raises if not even one row fits."""
+    n_cols = -(-W // TILE_W)
+    best = None
+    for th in range(1, H + 1):
+        if smem_bytes(th, search, radius) > MAX_SMEM:
+            break
+        waves = -(-P * n_cols * -(-H // th) // sms)
+        cost = waves * (th + 2 * radius + EMIT_ROWS * th + FIXED_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, th)
+    if best is None:
+        raise ValueError(f"flow_level kernel: search {search}, radius {radius} exceed the "
+                         f"shared memory of a block")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.08):
     """Batched flow level: (P, H, W) bf16 pairs → (P, H, W, 2) float32 flow.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``flow_level.launches`` counts the launches) or raise."""
+    (``flow_level.launches`` counts the launches) or raise. The kernel takes
+    any width (it tiles the columns), 1 <= P <= 65535, H * W < 2^31, and
+    any search >= 0 and radius >= 0 whose windows fit a block's shared memory."""
     if i1.device.type == "cpu" and i2.device.type == "cpu":
         return _flow_level(i1, i2, search, radius, temperature)
     if i1.device.type != "cuda" or i2.device != i1.device:
@@ -89,10 +137,13 @@ def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.
     if not (i1.is_contiguous() and i2.is_contiguous()):
         raise ValueError("flow_level kernel takes contiguous inputs")
     P, H, W = i1.shape
-    if W > 1024 or min(P, H, W) < 1:
-        raise ValueError(f"flow_level kernel takes 1 <= W <= 1024, got {tuple(i1.shape)}")
+    if min(P, H, W) < 1 or P > MAX_PAIRS or H * W >= 2**31:
+        raise ValueError(f"flow_level kernel takes 1 <= P <= {MAX_PAIRS} and H * W < 2^31, "
+                         f"got {tuple(i1.shape)}")
+    if search < 0 or radius < 0:
+        raise ValueError(f"flow_level kernel: search {search}, radius {radius} must be >= 0")
+    tile_h = tile_rows(P, H, W, search, radius, _sm_count(i1.device.index))
     out = torch.empty((P, H, W, 2), dtype=torch.float32, device=i1.device)
-    tile_h = max(1, min(H, 1024 // W))
     fn = build.load("flow_level")
     rc = fn(
         i1.data_ptr(), i2.data_ptr(), out.data_ptr(), P, H, W, tile_h, search, radius,
