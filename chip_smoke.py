@@ -25,7 +25,8 @@ Phases, each synchronised and each fatal on failure:
    at frame 0 and at frame 1, bf16 and float32 features; boxes <= 1e-3 px,
    peaks <= 1e-4, alive equal), a 16-step rollout (alive equal, live boxes
    < 0.1 px), both again at search windows of Q = 12 and 20 bins, and the
-   48-step round (printed, not gated);
+   48-step round (printed, not gated; timed in ms a round and µs a step,
+   with its registers from the ptxas log and its shared memory);
 4. reference: the tiny float32 fused pipeline (its tracker scan is kernel F
    on the card) and the tiny float32 stream on the card equal the same runs
    on the CPU (plain kernel versions) within the port's cross-framework
@@ -434,6 +435,22 @@ def scan_work(feats, anchor_ts, want, cfg):
     return int(touched.sum()), n_live
 
 
+def ptxas_usage(log: str, entry: str):
+    """(registers, spill bytes) that ptxas reported for the entry function
+    whose mangled name contains ``entry`` (None where the log lacks it)."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            regs = spill = None
+            for nxt in lines[i + 1:i + 6]:
+                if "spill stores" in nxt:
+                    spill = int(nxt.split("bytes spill stores")[0].split(",")[-1])
+                if "Used" in nxt and "registers" in nxt:
+                    regs = int(nxt.split("Used")[1].split("registers")[0])
+            return regs, spill
+    return None, None
+
+
 def track_scan_case(dev, times):
     """Kernel F against its plain version on the staged tracker's features
     (the base tracker on every 2nd frame of the 360×480 video: 48 × 90×120×96
@@ -441,7 +458,10 @@ def track_scan_case(dev, times):
     <= 1e-3 px, peaks <= 1e-4, alive equal) in bf16 and float32, a 16-step
     rollout (alive equal, live boxes < 0.1 px), the same at two other search
     windows (Q = 12 and 20), and the full 48-step round (printed, not
-    gated); timed at the round's shape, A = 8."""
+    gated); timed at the round's shape, A = 8, in ms a round and µs a step,
+    beside the compiled-in instantiation's registers (ptxas) and its
+    dynamic shared memory."""
+    from vdetlib_tpu_torch.kernels import build
     from vdetlib_tpu_torch.kernels import track_scan as kf
     from vdetlib_tpu_torch.nn.tracker_net import extract_template
 
@@ -524,6 +544,15 @@ def track_scan_case(dev, times):
     plain_ms = cuda_ms(lambda: kf.track_scan_plain(*args), iters=2, warmup=1)
     f, ats, _, tpl, _, _ = args
     Q, P, Cf = cfg.search_pool, cfg.template_pool, f.shape[-1]
+    regs, spill = ptxas_usage(build.build_log("track_scan"),
+                              f"track_scan_kernelI13__nv_bfloat16Lb1ELi{Q}ELi{P}ELi{Cf}E")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_cta = kf.cluster_ctas(A, sms)
+    log(f"kernel track_scan round: {ms:.4f} ms = {ms * 1e3 / Ts:.2f} us a step; {n_cta} blocks a "
+        f"lane ({2 * A * n_cta} of {sms} SMs), "
+        f"{kf._smem_bytes(Q, P, Cf, True, kf.launch_parts(Q, P, Cf, True))} bytes of dynamic "
+        f"shared memory a block; ptxas: {regs} registers, {spill} bytes spilled (bf16, Q={Q}, "
+        f"P={P}, C={Cf} compiled in)")
     n_pos, n_live = scan_work(f, ats.cpu().numpy(), want, cfg)
     n_bytes = (n_pos * Cf * f.element_size() + tpl.numel() * 4 + A * 4 * 4
                + 2 * Ts * A * (4 * 4 + 4 + 1))

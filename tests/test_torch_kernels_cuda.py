@@ -21,7 +21,12 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
   360×480 clip: one step (T = 2, anchors at frame 0 and 1; boxes <= 1e-3 px,
   peaks <= 1e-4, alive equal) in bf16 and float32, and a 16-step rollout
   (alive equal, live boxes < 0.1 px, live conf < 5e-3), at the default
-  pools (Q = 16, P = 8) and at Q = 12, Q = 20 and P = 6.
+  pools (Q = 16, P = 8) and at Q = 12, Q = 20 and P = 6; and the cases the
+  redesign (clusters of blocks a lane, 16-byte channel vectors, one partial
+  response where P do not fit) adds or risks: A = 1 and 3, anchors at the
+  first and last frame, boxes across the frame's edge, lanes that die, T = 1,
+  C = 36 and 100, float32 features at Q = 20 and 23 and at C = 38, and
+  A = 17 and 34 (clusters of 2 and of 1 block a lane).
 
 Every test carries the ``cuda`` marker and needs a CUDA device; without one
 it skips (the decision is made in a fixture, so every worker collects the
@@ -190,12 +195,12 @@ def scan_inputs(cuda):
     return cfg, sv, feats
 
 
-def _scan_both(cfg, feats, ats, boxes, dev):
+def _scan_both(cfg, feats, ats, boxes, dev, conf_thresh=0.5):
     from vdetlib_tpu_torch.nn.tracker_net import extract_template
 
     ats = torch.as_tensor(ats, device=dev)
     boxes = torch.as_tensor(boxes, device=dev)
-    args = (feats, ats, boxes, extract_template(feats[ats], boxes, cfg), cfg, 0.5)
+    args = (feats, ats, boxes, extract_template(feats[ats], boxes, cfg), cfg, conf_thresh)
     before = kf.track_scan_kernel.launches
     got = kf.track_scan_kernel(*args)
     torch.cuda.synchronize()
@@ -256,6 +261,84 @@ def test_scan_kernel_matches_plain_version_at_other_pools(cuda, scan_inputs, kw)
         assert float((gc - wc).abs()[wa].max()) < 5e-3
 
 
+def _rollout_within_bounds(got, want):
+    for gb, gc, ga, wb, wc, wa in ((*got[:3], *want[:3]), (*got[3:], *want[3:])):
+        assert torch.equal(ga, wa)
+        if wa.any():
+            assert float((gb - wb).abs()[wa].max()) < 0.1
+            assert float((gc - wc).abs()[wa].max()) < 5e-3
+
+
+@pytest.mark.parametrize("case", ["A1", "A3", "anchors_0_and_last", "edges", "dies", "T1",
+                                  "C36_scalar", "C100", "f32_Q20", "f32_Q23_one_partial",
+                                  "A17", "A34", "f32_C38_scalar"])
+def test_scan_kernel_edge_cases(cuda, scan_inputs, case):
+    """What the redesigned kernel adds or risks, against the plain version
+    (alive equal, live boxes < 0.1 px, live conf < 5e-3; T = 1 exactly): one
+    anchor and an odd count (clusters of one lane pair, idle warps); anchors
+    at the first and the last frame; boxes that touch or cross the frame's
+    edge (clamped taps); lanes that die
+    mid-scan (conf_thresh 0.8); one frame; C = 36 and 100 (no 16-byte
+    channel vectors: the scalar pooling and the run-time correlation);
+    float32 features at Q = 20 and Q = 23 (one partial response) and at
+    C = 38 (the float32 scalar pooling); A = 17 and 34 (clusters of 2 and of
+    1 block a lane on the H100's 132 SMs: other row splits and correlation
+    spreads)."""
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+
+    cfg, sv, feats = scan_inputs
+    T, h, w, _ = feats.shape
+    H, W = 4 * h, 4 * w
+    ats = np.array([0, 3, 7, 12, 15, 9, 5, 1])
+    boxes = sv.gt_boxes[np.arange(8) % sv.gt_boxes.shape[0], 2 * ats].astype(np.float32)
+    thresh = 0.5
+    if case == "A1":
+        ats, boxes = ats[:1], boxes[:1]
+    elif case == "A3":
+        ats, boxes = ats[:3], boxes[:3]
+    elif case == "anchors_0_and_last":
+        ats = np.array([0, T - 1, 0, T - 1])
+        boxes = sv.gt_boxes[np.arange(4) % sv.gt_boxes.shape[0], 2 * ats].astype(np.float32)
+    elif case == "edges":
+        boxes = np.array([[0.0, 0.0, 60.0, 50.0], [-20.0, -15.0, 30.0, 25.0],
+                          [W - 60.0, H - 50.0, W, H], [W - 30.0, H - 25.0, W + 20.0, H + 15.0],
+                          [-10.0, H / 2, 40.0, H / 2 + 50.0], [W / 2, -30.0, W / 2 + 60.0, 20.0],
+                          [0.0, 0.0, W, H], [W - 1.0, H - 1.0, W + 40.0, H + 40.0]], np.float32)
+    elif case == "dies":
+        thresh = 0.8
+    elif case == "T1":
+        feats, ats, boxes = feats[:1], ats[:3] * 0, boxes[:3]
+    elif case == "C36_scalar":
+        feats = feats[..., :36].contiguous()
+    elif case == "C100":
+        feats = torch.cat([feats, feats[..., :4]], -1)
+    elif case == "f32_Q20":
+        feats, cfg = feats.float(), TrackerConfig(search_factor=2.5)
+    elif case == "f32_Q23_one_partial":
+        feats, cfg = feats.float(), TrackerConfig(search_factor=2.875)
+    elif case == "f32_C38_scalar":
+        feats = feats[..., :38].float().contiguous()
+    elif case in ("A17", "A34"):
+        rng = np.random.default_rng(int(case[1:]))
+        ats = rng.integers(0, T, int(case[1:]))
+        k = rng.integers(0, sv.gt_boxes.shape[0], ats.shape[0])
+        boxes = (sv.gt_boxes[k, 2 * ats] + rng.normal(0, 3, (ats.shape[0], 4))).astype(np.float32)
+    # the cluster size each case covers (A <= 8: 4 blocks a lane)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kf.cluster_ctas(ats.shape[0], sms) == {"A17": 2, "A34": 1}.get(case, 4)
+    if case == "f32_Q23_one_partial":
+        assert kf.launch_parts(cfg.search_pool, 8, 96, False) == 1
+    got, want = _scan_both(cfg, feats, ats, boxes.astype(np.float32), cuda, thresh)
+    _rollout_within_bounds(got, want)
+    if case == "T1":
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+    if case == "dies":  # a lane tracks past its anchor, then dies before the scan ends
+        fa, ba = want[2], want[5]
+        assert any(int(fa[:, k].sum()) > 1 and not fa[-1, k] for k in range(fa.shape[1])) or \
+            any(int(ba[:, k].sum()) > 1 and not ba[0, k] for k in range(ba.shape[1]))
+
+
 def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda, scan_inputs):
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
 
@@ -271,5 +354,7 @@ def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda, scan_inputs):
         kf.track_scan_kernel(feats, ats, box, tpl[:, :4], cfg, 0.5)
     with pytest.raises(ValueError):  # Q = 4 < P = 8
         kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(search_factor=0.5), 0.5)
-    with pytest.raises(ValueError):  # a 32x32x96 window exceeds shared memory
-        kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(search_factor=4.0), 0.5)
+    with pytest.raises(ValueError, match="shared memory"):  # 33x33x96 bf16, even with one partial
+        kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(search_factor=4.125), 0.5)
+    with pytest.raises(ValueError, match="shared memory"):  # 24x24x96 float32
+        kf.track_scan_kernel(feats.float(), ats, box, tpl, TrackerConfig(search_factor=3.0), 0.5)

@@ -146,3 +146,56 @@ def test_track_batch_routes_by_configuration(bf16, monkeypatch, kw, routed):
 def test_ncc_update_is_the_scan_step():
     """video.track re-exports the plain step the kernel replaces."""
     assert ttrack.ncc_update is ks.ncc_update
+
+
+@pytest.mark.parametrize("bf16, elem", [(True, 2), (False, 4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("parts", [8, 1], ids=["P_partials", "one_partial"])
+def test_smem_bytes_follow_the_kernel_layout(bf16, elem, parts):
+    """csrc/track_scan.cu lays out one block's shared memory as the pooled
+    window in the features' type (16-byte aligned), then in float32 the
+    template, the partial responses, the row sums of the bins' norms and the
+    bins' norms."""
+    Q, P, C, R = 16, 8, 96, 9
+    want = Q * Q * C * elem + 4 * (P * P * C + parts * R * R + Q * R + Q * Q)
+    assert ks._smem_bytes(Q, P, C, bf16, parts) == want
+    assert ks._smem_bytes(13, 8, 3, bf16, parts) % 4 == 0
+    # the window's end is rounded up to 16 bytes: 13 x 13 x 3 bf16 = 1014 -> 1024
+    assert ks._smem_bytes(13, 8, 3, True, parts) - 4 * (64 * 3 + parts * 36 + 13 * 6 + 169) == 1024
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Q, P", [(12, 8), (16, 8), (20, 8), (12, 6)])
+def test_launch_plan_admits_the_trackers_pools(Q, P, bf16):
+    """The search windows of the card tests and of chip_smoke.py (factors 1.5,
+    2 and 2.5 at P = 8; P = 6) keep a partial response per template row."""
+    assert ks.launch_parts(Q, P, 96, bf16) == P
+    assert ks._smem_bytes(Q, P, 96, bf16, P) <= ks.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bf16, last_p, last_1", [(True, 30, 32), (False, 22, 23)],
+                         ids=["bf16", "f32"])
+def test_launch_plan_refuses_the_first_shape_that_does_not_fit(bf16, last_p, last_1):
+    """At P = 8, C = 96: P partials up to Q = last_p, one partial up to last_1,
+    and Q = last_1 + 1 does not fit a block's shared memory."""
+    assert ks.launch_parts(last_p, 8, 96, bf16) == 8
+    assert ks.launch_parts(last_p + 1, 8, 96, bf16) == 1
+    assert ks.launch_parts(last_1, 8, 96, bf16) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        ks.launch_parts(last_1 + 1, 8, 96, bf16)
+
+
+@pytest.mark.parametrize("A, n_cta", [(1, 4), (8, 4), (16, 4), (17, 2), (33, 2), (34, 1),
+                                      (100, 1)])
+def test_cluster_of_a_lane_fits_the_card(A, n_cta):
+    """Each of the 2A lanes runs on a cluster of 4 blocks, halved until all
+    lanes' clusters fit the H100's 132 SMs at once."""
+    assert ks.cluster_ctas(A, 132) == n_cta
+    assert n_cta == 1 or 2 * A * n_cta <= 132
+
+
+@pytest.mark.parametrize("A, n_cta", [(8, 4), (14, 4), (15, 2), (28, 2), (29, 1)])
+def test_cluster_of_a_lane_follows_the_cards_sm_count(A, n_cta):
+    """The wrapper passes the device's SM count: on a card with 114 SMs
+    (H100 PCIe) the clusters halve at smaller A."""
+    assert ks.cluster_ctas(A, 114) == n_cta
+    assert n_cta == 1 or 2 * A * n_cta <= 114

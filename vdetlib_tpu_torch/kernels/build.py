@@ -65,10 +65,10 @@ KERNELS = {
     ),
     # track_scan(feats, feats_bf16, anchor_ts, anchor_boxes, templates, out_box,
     # out_conf, out_alive, T, A, h, w, C, Q, P, stride, factor, conf_thresh,
-    # stream); the window, bilinear weights and box update round as the plain
-    # version's ops do
+    # n_cta, parts, stream); the window, bilinear weights and box update round
+    # as the plain version's ops do
     "track_scan": (
-        ("vdet_track_scan", (_P, _I, _P, _P, _P, _P, _P, _P) + (_I,) * 8 + (_F, _F, _P)),
+        ("vdet_track_scan", (_P, _I, _P, _P, _P, _P, _P, _P) + (_I,) * 8 + (_F, _F, _I, _I, _P)),
         ("-fmad=false",),
     ),
 }

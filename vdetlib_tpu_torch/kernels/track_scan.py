@@ -12,7 +12,9 @@ above ``conf_thresh`` and keeps its last box once it dies.
 :func:`track_scan_plain` is the plain version (a Python loop of T steps of
 tensor ops over all 2A lanes); :func:`track_scan_kernel` is the wrapper: CPU
 tensors go through the plain version, CUDA tensors through
-``csrc/track_scan.cu`` (one launch for the whole scan). Both return
+``csrc/track_scan.cu`` (one launch for the whole scan, each lane on a
+cluster of :func:`cluster_ctas` blocks, keeping :func:`launch_parts`
+partial responses). Both return
 ``(fb, fc, fa, bb, bc, ba)``: forward and backward boxes (T, A, 4), conf
 (T, A) and alive (T, A), indexed by frame, as the JAX kernel does.
 """
@@ -31,6 +33,7 @@ from vdetlib_tpu_torch.nn.tracker_net import (
 )
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory one block may use on an H100
+MAX_CLUSTER = 4  # blocks that share one lane's steps
 
 
 def ncc_update(feat_t, box, template, cfg: TrackerConfig):
@@ -135,11 +138,35 @@ def kernel_takes(cfg: TrackerConfig) -> bool:
     return int(cfg.num_scales) <= 1 and cfg.template_eta == 0.0
 
 
-def _smem_bytes(Q: int, P: int, C: int) -> int:
-    """Dynamic shared memory of one block: window, template, bin norms,
-    response, and the window's row and column taps (2 weights, 2 indices)."""
+def _smem_bytes(Q: int, P: int, C: int, bf16: bool, parts: int) -> int:
+    """Dynamic shared memory of one block, as ``csrc/track_scan.cu::smem_bytes``
+    lays it out: the pooled window in the features' type (16-byte aligned),
+    then in float32 the template, ``parts`` partial responses, the row sums
+    of the bins' norms and the bins' norms."""
     R = Q - P + 1
-    return 4 * (Q * Q * C + P * P * C + Q * Q + R * R + 8 * Q)
+    window = -(-Q * Q * C * (2 if bf16 else 4) // 16) * 16
+    return window + 4 * (P * P * C + parts * R * R + Q * R + Q * Q)
+
+
+def cluster_ctas(A: int, sms: int) -> int:
+    """Blocks (a thread-block cluster) the kernel spreads each of its 2A lanes
+    over: MAX_CLUSTER, halved until every lane's cluster fits the card's
+    ``sms`` streaming multiprocessors at once."""
+    n = MAX_CLUSTER
+    while n > 1 and 2 * A * n > sms:
+        n //= 2
+    return n
+
+
+def launch_parts(Q: int, P: int, C: int, bf16: bool) -> int:
+    """The partial responses the kernel keeps: one per template row where
+    they fit a block's shared memory, else one; raises
+    ValueError where neither fits."""
+    for parts in (P, 1):
+        if _smem_bytes(Q, P, C, bf16, parts) <= SMEM_LIMIT:
+            return parts
+    raise ValueError(f"track_scan: a {Q}x{Q}x{C} window and a {P}x{P}x{C} template do not "
+                     f"fit one block's shared memory")
 
 
 def track_scan_kernel(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerConfig,
@@ -170,12 +197,11 @@ def track_scan_kernel(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerCon
         )
     if not 1 <= P <= Q:
         raise ValueError(f"track_scan takes 1 <= template_pool <= search_pool, got P={P}, Q={Q}")
-    if _smem_bytes(Q, P, C) > SMEM_LIMIT:
-        raise ValueError(f"track_scan: a {Q}x{Q}x{C} window and a {P}x{P}x{C} template do not "
-                         f"fit one block's shared memory")
+    parts = launch_parts(Q, P, C, feats.dtype == torch.bfloat16)
     if min(T, h, w, C, A) < 1:
         raise ValueError(f"track_scan: empty input {tuple(feats.shape)}, A={A}")
     dev = feats.device
+    n_cta = cluster_ctas(A, torch.cuda.get_device_properties(dev).multi_processor_count)
     feats = feats.contiguous()
     ats = anchor_ts.to(torch.int32).contiguous()
     aboxes = anchor_boxes.to(torch.float32).contiguous()
@@ -188,7 +214,7 @@ def track_scan_kernel(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerCon
         feats.data_ptr(), int(feats.dtype == torch.bfloat16), ats.data_ptr(), aboxes.data_ptr(),
         tpls.data_ptr(), out_box.data_ptr(), out_conf.data_ptr(), out_alive.data_ptr(),
         T, A, h, w, C, Q, P, cfg.stride, float(cfg.search_factor), float(conf_thresh),
-        torch.cuda.current_stream(dev).cuda_stream,
+        n_cta, parts, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch("track_scan", rc)
     track_scan_kernel.launches += 1
