@@ -11,16 +11,24 @@ Phases, each synchronised and each fatal on failure:
    compiled with nvcc (one process per source, all at once, into
    ``vdetlib_tpu_torch/_build``) and loaded;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of its path, all timed with CUDA events beside their bound:
+   the shapes of its path, each timed three ways beside its bound: the
+   wall per call (CUDA events around back-to-back calls), the kernel's
+   device time per launch (torch.profiler's CUPTI records of the kernels
+   named ``<name>_kernel``) and the wrapper's host time per call:
    A, flow level: 32, 63, 95 and 255 pairs of 60×80 bf16 (the stream's
    chunk, the fused slice's buckets, a 256-frame video), box-shift
    tolerance mean < 0.05 px, max < 0.5 px at each; B, grouped NMS: 256
-   frames × 192 slots, 30 class groups; C, batched NMS: the stream's 960 problems (32 frames × 30
-   classes) of 64 slots; D, sorted NMS: 1,920 problems (64 frames × 30
-   classes) of 512 slots. The NMS problems hold ties, invalid and padded
-   slots, and their keep sets must be identical; E, resize + normalize: 96
-   native 360×480 frames to 240×320 and 240×320 frames to the pyramid's
-   176×240 and 304×400, abs <= 1e-3; F, tracker scan, on the staged
+   frames × 192 slots with 30 class groups (the fused dedup), and 32 and
+   960 problems of 192 slots with one group (the stream's MGP dedup for
+   one class and for a chunk's 32 frames × 30 classes); C, batched NMS:
+   the stream's 960 problems (32 frames × 30 classes) of 64 slots; D,
+   sorted NMS: 1,920 problems (64 frames × 30 classes) of 512 slots, its
+   torch sort and scatter timed apart. The NMS problems hold ties, invalid
+   and padded slots, their keep sets must be identical, and the Jacobi
+   steps of B's and C's fixpoints are counted with the plain version; E,
+   resize + normalize: 96 native 360×480 frames to 240×320 and 240×320
+   frames to the pyramid's 176×240 and 304×400, abs <= 1e-3, timed at each
+   in batches of 8 beside ``F.interpolate`` + mean; F, tracker scan, on the staged
    tracker's features (48 × 90×120×96 bf16): one-step clips (T = 2, anchors
    at frame 0 and at frame 1, bf16 and float32 features; boxes <= 1e-3 px,
    peaks <= 1e-4, alive equal), a 16-step rollout (alive equal, live boxes
@@ -55,7 +63,8 @@ Phases, each synchronised and each fatal on failure:
 Around each of phases 5–8 the kernels' launch counters are zeroed just
 before and read just after; a kernel's ``launches`` in the record is the
 count from its own path (A, B: fused slice; C: stream; D: frame NMS; E, F:
-staged path).
+staged path). B–E are then ranked by their device loss over phases 5–8,
+launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -113,7 +122,10 @@ def gpu_name_and_power() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream (CUDA events)."""
+    """Mean milliseconds per call of ``fn`` on the current stream (CUDA events).
+
+    The wall per call: where the device finishes a launch sooner than the
+    host enqueues the next, this is the host's rate, not the kernel's."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -125,6 +137,61 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str | None = None):
+    """Device milliseconds per call of ``fn``, from torch.profiler's CUPTI
+    records over ``iters`` calls after one warm-up: (the kernels whose name
+    contains ``kernel``, every other device activity: kernels, copies,
+    fills). With ``kernel`` None every activity counts in the first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    own = other = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if kernel is None or kernel in e.name:
+            own += e.time_range.elapsed_us()
+        else:
+            other += e.time_range.elapsed_us()
+    assert own > 0, f"the profiler saw no device time for {kernel or 'the call'}"
+    return own / iters / 1e3, other / iters / 1e3
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call of ``fn``: a perf_counter loop with no
+    synchronisation, what a call costs its caller's thread."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def kernel_times(fn, kernel: str, iters: int) -> dict:
+    """One hand kernel's call ``fn`` timed three ways: ``ms`` the wall per
+    call (CUDA events), ``device_ms`` its kernel's device time per call
+    (``other_device_ms`` the rest of the call's device work), ``host_us``
+    the wrapper's host time per call. The profiler runs last: the first
+    profiled loop of a process slows the host loops that follow it."""
+    ms, us = cuda_ms(fn, iters), host_us(fn, iters)
+    dev_ms, other_ms = device_ms(fn, iters, kernel)
+    return dict(ms=ms, device_ms=dev_ms, other_device_ms=other_ms, host_us=us)
+
+
+def fmt_times(t: dict) -> str:
+    return (f"wall per call {t['ms']:.4f} ms, device {t['device_ms']:.5f} ms, "
+            f"host {t['host_us']:.1f} us")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -202,6 +269,29 @@ def _precedes(scores, valid):
     return (sj > si) | ((sj == si) & (idx[None, :] < idx[:, None])[None])
 
 
+def jacobi_steps(boxes, scores, valid, thresh, groups=None):
+    """Jacobi steps of ``keep = valid ∧ ¬(M·keep)`` on this data, counted
+    with the plain version's adjacency: for each problem the steps that
+    change ``keep`` (a kernel runs one more, which confirms the fixpoint).
+    Returns (max, mean) over the problems."""
+    from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET, pairwise_iou
+
+    m = ((pairwise_iou(boxes, boxes, offset=LEGACY_OFFSET) > thresh)
+         & _precedes(scores, valid) & valid[:, None, :])
+    if groups is not None:
+        m &= groups[:, :, None] == groups[:, None, :]
+    keep = valid.clone()
+    steps = torch.zeros(valid.shape[0], dtype=torch.int64, device=valid.device)
+    for _ in range(valid.shape[1]):
+        new = valid & ~(m & keep[:, None, :]).any(-1)
+        changed = (new != keep).any(-1)
+        if not bool(changed.any()):
+            break
+        steps += changed
+        keep = new
+    return int(steps.max()), float(steps.float().mean())
+
+
 def fixpoint_iou_count(scores, valid, groups=None) -> int:
     """IoUs the Jacobi fixpoint needs on this data: one per valid slot i and
     valid slot j of its group that precedes it (the <= N steps of word ANDs
@@ -253,7 +343,7 @@ def flow_case(dev, times):
     # the online soft-argmin (min, 2 sub, 2 mul, 2 exp, den: mul + add, fx
     # and fy: 2 mul + add each = 15)
     per_shift = 2 + 2 * (2 * radius) + 1 + 15
-    ms_by_p, worst = {}, 0.0
+    ms_by_p, dev_by_p, worst = {}, {}, 0.0
     for P in FLOW_PAIRS:
         i1, i2 = gray[:P].contiguous(), gray[1:P + 1].contiguous()
         got = kl.flow_level(i1, i2)
@@ -265,80 +355,146 @@ def flow_case(dev, times):
              - tflow.mean_flow_in_boxes(want, boxes * scale, valid)).abs() / scale  # full-res px
         err, mean = float(d.max()), float(d.mean())
         field_err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: kl.flow_level(i1, i2), iters=20)
+        t = kernel_times(lambda: kl.flow_level(i1, i2), "flow_level_kernel", iters=20)
         _, Hq, Wq = i1.shape
         b_ms, b_by = bound(i1.numel() * 2 * 2 + got.numel() * 4,
                            P * Hq * Wq * (2 * search + 1) ** 2 * per_shift)
-        log(f"kernel flow_level P={P} {tuple(i1.shape)} bf16: {ms:.4f} ms (bound {b_ms:.6f} "
+        log(f"kernel flow_level P={P} {tuple(i1.shape)} bf16: {fmt_times(t)} (bound {b_ms:.6f} "
             f"by {b_by}); box-shift err mean {mean:.6f} max {err:.6f} px (tolerance mean "
             f"< 0.05, max < 0.5); field max |diff| {field_err:.6f} cells")
         assert math.isfinite(err) and mean < 0.05 and err < 0.5, f"flow kernel disagrees at P={P}"
-        ms_by_p[P] = ms
+        ms_by_p[P], dev_by_p[P] = t["ms"], t["device_ms"]
         worst = max(worst, err)
     plain_ms = cuda_ms(lambda: kl._flow_level(i1, i2), iters=5)
-    times.append(f"flow_level kernel {ms:.4f} plain {plain_ms:.4f} bound {b_ms:.4f} "
-                 f"(P={P}; by P {ms_by_p})")
+    times.append(f"flow_level kernel {t['ms']:.4f} device {t['device_ms']:.5f} plain "
+                 f"{plain_ms:.4f} bound {b_ms:.4f} (P={P}; by P: wall {ms_by_p}, device {dev_by_p})")
     return dict(name="flow_level", route="cuda", source="vdetlib_tpu_torch/csrc/flow_level.cu",
-                replaces="vdetlib_tpu/kernels/flow_pallas.py:104", max_abs_err=worst, ms=ms,
-                ms_by_p=ms_by_p, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                replaces="vdetlib_tpu/kernels/flow_pallas.py:104", max_abs_err=worst, ms=t["ms"],
+                device_ms=t["device_ms"], host_us=t["host_us"], ms_by_p=ms_by_p,
+                device_ms_by_p=dev_by_p, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+
+
+NMS_THRESH = 0.3  # the engines' default nms_thresh
+# kernel B's timed shapes (name, problems, slots, groups): the fused slice's
+# dedup (frames x 3 x 64 slots, 30 class groups), the stream's MGP dedup
+# through batched_nms (one group) for one frame's 192 slots x 32 frames, and
+# at the size the stream launches it: a full chunk of 32 frames x 30 classes
+GROUPED_SHAPES = (("fused", 256, 192, 30), ("stream 32", 32, 192, 1), ("stream", 960, 192, 1))
+
+
+def nms_run(name, kernel, plain, args, iou_count, iters):
+    """One NMS kernel at one shape: keep sets identical to the plain version,
+    timed (``kernel_times``) beside its bound. ``args`` = boxes, scores,
+    valid (, groups)."""
+    keep = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    n_diff = int((keep != ref).sum())
+    Bn, N = args[1].shape
+    n_valid = int(args[2].sum())
+    assert n_diff == 0, f"{name} kernel disagrees at ({Bn}, {N})"
+    assert 0 < int(keep.sum()) < n_valid, f"{name}: the problem suppresses nothing"
+    t = kernel_times(lambda: kernel(*args), f"{name}_kernel", iters)
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + keep.numel()
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, AREA_OPS * Bn * N + IOU_OPS * iou_count)
+    t.update(n_diff=n_diff, kept=int(keep.sum()), valid=n_valid, ious=iou_count)
+    return t
+
+
+def nms_record(name, replaces, t, plain_ms, **extra):
+    return dict(name=name, route="cuda", source=f"vdetlib_tpu_torch/csrc/{name}.cu",
+                replaces=replaces, max_abs_err=float(t["n_diff"]), ms=t["ms"],
+                device_ms=t["device_ms"], host_us=t["host_us"], plain_ms=plain_ms,
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None, **extra)
+
+
+def grouped_case(dev, times):
+    """Kernel B at each of GROUPED_SHAPES: keep sets identical to the plain
+    version, the fixpoint's Jacobi steps (plain version), timed; the record's
+    own figures are the fused shape's, every shape's under ``shapes``."""
+    from vdetlib_tpu_torch.kernels import nms_grouped as kb
+
+    th = NMS_THRESH
+    shapes, plain_ms = {}, None
+    for i, (label, Bn, N, n_groups) in enumerate(GROUPED_SHAPES):
+        args = [torch.from_numpy(a).to(dev)
+                for a in nms_problem(Bn, N, seed=1 + 10 * i, groups=max(n_groups, 1))]
+        if n_groups == 1:  # batched_nms's one group: every slot 0
+            args[3] = torch.zeros_like(args[3])
+        t = nms_run("nms_grouped", lambda b, s, v, g: kb.nms_grouped_kernel(b, s, v, g, th),
+                    lambda b, s, v, g: kb.nms_unsorted_fixpoint(b, s, v, th, groups=g), args,
+                    fixpoint_iou_count(*args[1:]), iters=50)
+        t["steps_max"], t["steps_mean"] = jacobi_steps(*args[:3], th, groups=args[3])
+        log(f"kernel nms_grouped {label} ({Bn}, {N}, {n_groups} groups): keep identical "
+            f"({t['kept']} of {t['valid']} valid kept); {fmt_times(t)}; bound "
+            f"{t['bound_ms']:.6f} ms ({t['ious']} IoUs); Jacobi steps max {t['steps_max']} "
+            f"mean {t['steps_mean']:.2f} (+1 to confirm)")
+        if plain_ms is None:
+            plain_ms = cuda_ms(lambda: kb.nms_unsorted_fixpoint(*args[:3], th, groups=args[3]),
+                               iters=10, warmup=1)
+        shapes[label] = {k: t[k] for k in ("ms", "device_ms", "host_us", "bound_ms", "bound_by",
+                                           "ious", "steps_max", "steps_mean")}
+        times.append(f"nms_grouped {label} kernel {t['ms']:.4f} device {t['device_ms']:.5f} "
+                     f"bound {t['bound_ms']:.6f}" + (f" plain {plain_ms:.4f}" if i == 0 else ""))
+    return nms_record("nms_grouped", "vdetlib_tpu/kernels/nms_pallas.py:261",
+                      dict(shapes["fused"], n_diff=0), plain_ms,
+                      steps=shapes["fused"]["steps_max"], shapes=shapes)
+
+
+def batched_case(dev, times):
+    """Kernel C at the stream's per-frame per-class NMS, 32 frames x 30
+    classes x 64 slots: keep sets identical, Jacobi steps, timed."""
+    from vdetlib_tpu_torch.kernels import nms_batched as kc
+    from vdetlib_tpu_torch.kernels import nms_grouped as kb
+
+    th = NMS_THRESH
+    args = [torch.from_numpy(a).to(dev) for a in nms_problem(32 * 30, 64, seed=2)]
+    t = nms_run("nms_batched", lambda *a: kc.nms_batched_kernel(*a, th),
+                lambda *a: kb.nms_unsorted_fixpoint(*a, th), args,
+                fixpoint_iou_count(*args[1:]), iters=50)
+    steps = jacobi_steps(*args, th)
+    plain_ms = cuda_ms(lambda: kb.nms_unsorted_fixpoint(*args, th), iters=10, warmup=1)
+    log(f"kernel nms_batched (960, 64): keep identical ({t['kept']} of {t['valid']} valid kept); "
+        f"{fmt_times(t)}; bound {t['bound_ms']:.6f} ms ({t['ious']} IoUs); Jacobi steps max "
+        f"{steps[0]} mean {steps[1]:.2f} (+1 to confirm)")
+    times.append(f"nms_batched kernel {t['ms']:.4f} device {t['device_ms']:.5f} plain "
+                 f"{plain_ms:.4f} bound {t['bound_ms']:.6f}")
+    return nms_record("nms_batched", "vdetlib_tpu/kernels/nms_pallas.py:186", t, plain_ms,
+                      steps=steps[0], steps_mean=steps[1])
+
+
+def sorted_case(dev, times):
+    """Kernel D at the frame-NMS tool's default budget, 64 frames x 30
+    classes x 512 slots: keep sets identical; the kernel's device time apart
+    from its torch sort and scatter."""
+    from vdetlib_tpu_torch.kernels import nms_sorted as kd
+
+    th = NMS_THRESH
+    args = [torch.from_numpy(a).to(dev) for a in nms_problem(NMS_FRAMES * 30, 512, seed=3)]
+    t = nms_run("nms_sorted", lambda *a: kd.nms_sorted_kernel(*a, th),
+                lambda *a: kd.nms_sorted_greedy(*a, th), args, greedy_iou_count(*args, th),
+                iters=20)
+    plain_ms = cuda_ms(lambda: kd.nms_sorted_greedy(*args, th), iters=2, warmup=1)
+    log(f"kernel nms_sorted (1920, 512): keep identical ({t['kept']} of {t['valid']} valid "
+        f"kept); {fmt_times(t)}, its torch sort and scatter {t['other_device_ms']:.5f} ms "
+        f"device; bound {t['bound_ms']:.6f} ms ({t['ious']} IoUs)")
+    times.append(f"nms_sorted kernel {t['ms']:.4f} device {t['device_ms']:.5f} (+ sort and "
+                 f"scatter {t['other_device_ms']:.5f}) plain {plain_ms:.4f} bound "
+                 f"{t['bound_ms']:.6f}")
+    return nms_record("nms_sorted", "vdetlib_tpu/kernels/nms_pallas.py:354", t, plain_ms,
+                      sort_scatter_device_ms=t["other_device_ms"])
 
 
 def phase_kernels(dev):
     """Kernels vs plain versions at their paths' shapes → kernel records."""
-    from vdetlib_tpu_torch.kernels import nms_batched as kc
-    from vdetlib_tpu_torch.kernels import nms_grouped as kb
-    from vdetlib_tpu_torch.kernels import nms_sorted as kd
-
     times = []
-    records = {"flow_level": flow_case(dev, times)}
-
-    def nms_case(name, kernel, plain, args, replaces, iou_count, iters, plain_iters):
-        """``args`` = boxes, scores, valid (, groups); keep sets must be identical."""
-        keep = kernel(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        n_diff = int((keep != ref).sum())
-        Bn, N = args[1].shape
-        n_valid = int(args[2].sum())
-        log(f"kernel {name} ({Bn}, {N}): {n_diff} slots differ from the plain version "
-            f"(kept {int(keep.sum())} of {n_valid} valid; tolerance: identical)")
-        assert n_diff == 0, f"{name} kernel disagrees"
-        assert 0 < int(keep.sum()) < n_valid, f"{name}: the problem suppresses nothing"
-        ms = cuda_ms(lambda: kernel(*args), iters=iters)
-        plain_ms = cuda_ms(lambda: plain(*args), iters=plain_iters, warmup=1)
-        n_bytes = sum(a.numel() * a.element_size() for a in args) + keep.numel()
-        b_ms, b_by = bound(n_bytes, AREA_OPS * Bn * N + IOU_OPS * iou_count)
-        times.append(f"{name} kernel {ms:.4f} plain {plain_ms:.4f} bound {b_ms:.6f} "
-                     f"({iou_count} IoUs)")
-        records[name] = dict(
-            name=name, route="cuda", source=f"vdetlib_tpu_torch/csrc/{name}.cu",
-            replaces=replaces, max_abs_err=float(n_diff), ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-
-    th = 0.3
-    # kernel B: the MGP dedup problem, 256 frames x 192 slots (3 x 64 budget)
-    args = [torch.from_numpy(a).to(dev) for a in nms_problem(256, 192, seed=1, groups=30)]
-    nms_case("nms_grouped", lambda b, s, v, g: kb.nms_grouped_kernel(b, s, v, g, th),
-             lambda b, s, v, g: kb.nms_unsorted_fixpoint(b, s, v, th, groups=g), args,
-             "vdetlib_tpu/kernels/nms_pallas.py:261", fixpoint_iou_count(*args[1:]),
-             iters=50, plain_iters=10)
-    # kernel C: the stream's per-frame per-class NMS, 32 frames x 30 classes x 64
-    args = [torch.from_numpy(a).to(dev) for a in nms_problem(32 * 30, 64, seed=2)]
-    nms_case("nms_batched", lambda *a: kc.nms_batched_kernel(*a, th),
-             lambda *a: kb.nms_unsorted_fixpoint(*a, th), args,
-             "vdetlib_tpu/kernels/nms_pallas.py:186", fixpoint_iou_count(*args[1:]),
-             iters=50, plain_iters=10)
-    # kernel D: the frame-NMS tool's default budget, 64 frames x 30 classes x 512
-    args = [torch.from_numpy(a).to(dev) for a in nms_problem(NMS_FRAMES * 30, 512, seed=3)]
-    nms_case("nms_sorted", lambda *a: kd.nms_sorted_kernel(*a, th),
-             lambda *a: kd.nms_sorted_greedy(*a, th), args,
-             "vdetlib_tpu/kernels/nms_pallas.py:354", greedy_iou_count(*args, th),
-             iters=20, plain_iters=2)
-    records["resize_normalize"] = resize_case(dev, times)
-    records["track_scan"] = track_scan_case(dev, times)
-    log("times (ms/call, CUDA events; bound from the H100's published peaks): "
-        + "; ".join(times))
+    records = {"flow_level": flow_case(dev, times), "nms_grouped": grouped_case(dev, times),
+               "nms_batched": batched_case(dev, times), "nms_sorted": sorted_case(dev, times),
+               "resize_normalize": resize_case(dev, times),
+               "track_scan": track_scan_case(dev, times)}
+    log("times (ms a call; wall by CUDA events, device by the profiler; bound from the "
+        "H100's published peaks): " + "; ".join(times))
     return records
 
 
@@ -363,29 +519,45 @@ def resize_case(dev, times):
         assert got.shape == want.shape and math.isfinite(e) and e <= 1e-3, \
             "resize kernel disagrees"
         err = max(err, e)
-    batch = native[:DETECT_B]
     mean = torch.tensor(ke.PIXEL_MEAN, device=dev)
+    shapes = {}
+    for frames, hw in ((native, (H, W)), (net, PYRAMID_HW[0]), (net, PYRAMID_HW[1])):
+        batch = frames[:DETECT_B]
 
-    def library():  # the same half-pixel bilinear resize, then the mean
-        x = F.interpolate(batch.permute(0, 3, 1, 2).float(), size=(H, W), mode="bilinear",
-                          align_corners=False)
-        return x.permute(0, 2, 3, 1) - mean
+        def library(batch=batch, hw=hw):  # the same half-pixel bilinear resize, then the mean
+            x = F.interpolate(batch.permute(0, 3, 1, 2).float(), size=hw, mode="bilinear",
+                              align_corners=False)
+            return x.permute(0, 2, 3, 1) - mean
 
-    lib_err = float((library() - ke.fused_resize_normalize(batch, (H, W))).abs().max())
-    ms = cuda_ms(lambda: ke.fused_resize_normalize_kernel(batch, (H, W)), iters=50)
-    plain_ms = cuda_ms(lambda: ke.fused_resize_normalize(batch, (H, W)), iters=20)
-    lib_ms = cuda_ms(library, iters=20)
-    n_out = batch.shape[0] * H * W * 3
-    # per output value: two taps per source column (2 mul + add, twice), the
-    # column blend (2 mul + add), the mean and the scale (2)
-    b_ms, b_by = bound(batch.numel() + n_out * 4, 11 * n_out)
-    times.append(f"resize_normalize kernel {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} "
-                 f"bound {b_ms:.6f} ({tuple(batch.shape)} -> {(H, W)}; library vs plain "
-                 f"max |diff| {lib_err:.2e})")
+        label = f"{batch.shape[1]}x{batch.shape[2]}->{hw[0]}x{hw[1]}"
+        lib_err = float((library() - ke.fused_resize_normalize(batch, hw)).abs().max())
+        t = kernel_times(lambda: ke.fused_resize_normalize_kernel(batch, hw),
+                         "resize_normalize_kernel", iters=50)
+        t["library_ms"] = cuda_ms(library, iters=20)
+        t["library_device_ms"] = device_ms(library, 20)[0]
+        n_out = batch.shape[0] * hw[0] * hw[1] * 3
+        # per output value: two taps per source column (2 mul + add, twice), the
+        # column blend (2 mul + add), the mean and the scale (2)
+        t["bound_ms"], t["bound_by"] = bound(batch.numel() + n_out * 4, 11 * n_out)
+        log(f"kernel resize_normalize {tuple(batch.shape)} -> {hw}: {fmt_times(t)}; bound "
+            f"{t['bound_ms']:.6f} ms; library (F.interpolate + mean) wall "
+            f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.5f} ms (library vs "
+            f"plain max |diff| {lib_err:.2e})")
+        if not shapes:  # the record's own figures: the device-resize call
+            main, batch_main, hw_main = t, batch, hw
+        shapes[label] = {k: t[k] for k in ("ms", "device_ms", "host_us", "bound_ms", "library_ms",
+                                           "library_device_ms")}
+    plain_ms = cuda_ms(lambda: ke.fused_resize_normalize(batch_main, hw_main), iters=20)
+    times.append(f"resize_normalize kernel {main['ms']:.4f} device {main['device_ms']:.5f} plain "
+                 f"{plain_ms:.4f} library {main['library_ms']:.4f} (device "
+                 f"{main['library_device_ms']:.5f}) bound {main['bound_ms']:.6f} "
+                 f"({tuple(batch_main.shape)} -> {hw_main})")
     return dict(name="resize_normalize", route="cuda",
                 source="vdetlib_tpu_torch/csrc/resize_normalize.cu",
-                replaces="vdetlib_tpu/kernels/preprocess.py:60", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                replaces="vdetlib_tpu/kernels/preprocess.py:60", max_abs_err=err, ms=main["ms"],
+                device_ms=main["device_ms"], host_us=main["host_us"], plain_ms=plain_ms,
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"],
+                library_device_ms=main["library_device_ms"], shapes=shapes)
 
 
 def scan_ops(Q, P, C):
@@ -540,7 +712,8 @@ def track_scan_case(dev, times):
     alive_eq, box_err, conf_err, args, want = rollout(Ts, cfg)
     log(f"kernel track_scan {Ts}-step round (A={A}, not gated): alive agreement {alive_eq:.4f}, "
         f"live box diff {box_err:.3e} px, live conf diff {conf_err:.3e}")
-    ms = cuda_ms(lambda: kf.track_scan_kernel(*args), iters=10)
+    t = kernel_times(lambda: kf.track_scan_kernel(*args), "track_scan_kernel", iters=10)
+    ms = t["ms"]
     plain_ms = cuda_ms(lambda: kf.track_scan_plain(*args), iters=2, warmup=1)
     f, ats, _, tpl, _, _ = args
     Q, P, Cf = cfg.search_pool, cfg.template_pool, f.shape[-1]
@@ -548,7 +721,8 @@ def track_scan_case(dev, times):
                               f"track_scan_kernelI13__nv_bfloat16Lb1ELi{Q}ELi{P}ELi{Cf}E")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_cta = kf.cluster_ctas(A, sms)
-    log(f"kernel track_scan round: {ms:.4f} ms = {ms * 1e3 / Ts:.2f} us a step; {n_cta} blocks a "
+    log(f"kernel track_scan round: {fmt_times(t)}, device {t['device_ms'] * 1e3 / Ts:.2f} us a "
+        f"step; {n_cta} blocks a "
         f"lane ({2 * A * n_cta} of {sms} SMs), "
         f"{kf._smem_bytes(Q, P, Cf, True, kf.launch_parts(Q, P, Cf, True))} bytes of dynamic "
         f"shared memory a block; ptxas: {regs} registers, {spill} bytes spilled (bf16, Q={Q}, "
@@ -557,14 +731,16 @@ def track_scan_case(dev, times):
     n_bytes = (n_pos * Cf * f.element_size() + tpl.numel() * 4 + A * 4 * 4
                + 2 * Ts * A * (4 * 4 + 4 + 1))
     b_ms, b_by = bound(n_bytes, n_live * scan_ops(Q, P, Cf))
-    times.append(f"track_scan kernel {ms:.4f} plain {plain_ms:.4f} bound {b_ms:.6f} "
+    times.append(f"track_scan kernel {ms:.4f} device {t['device_ms']:.5f} plain {plain_ms:.4f} "
+                 f"bound {b_ms:.6f} "
                  f"({Ts} steps x {2 * A} lanes over {tuple(f.shape)}: {n_live} lane-steps "
                  f"track, reading {n_pos} of {Ts * f.shape[1] * f.shape[2]} feature positions, "
                  f"{n_bytes / 1e6:.2f} MB)")
     return dict(name="track_scan", route="cuda", source="vdetlib_tpu_torch/csrc/track_scan.cu",
                 replaces="vdetlib_tpu/kernels/track_pallas.py:230",
-                max_abs_err=max(step_box, step_peak), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                max_abs_err=max(step_box, step_peak), ms=ms, device_ms=t["device_ms"],
+                host_us=t["host_us"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1102,6 +1278,37 @@ def phase_staged(dev, kernels, profile_dir=None):
 # ---------------------------------------------------------------- main
 
 
+def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
+    """Ranks kernels B–E by their device loss over phases 5–8: launches ×
+    (device ms − bound ms), B at its fused shape for the slice's launches and
+    at the stream's for the stream's. A kernel is a candidate for a redesign
+    while it reaches less than half its bound (E also while its library call
+    is faster); the two candidates that lose most are named."""
+    b = records["nms_grouped"]["shapes"]
+    e = records["resize_normalize"]
+    terms = {
+        "nms_grouped": [(slice_counts["nms_grouped"], b["fused"]),
+                        (stream_counts["nms_grouped"], b["stream"])],
+        "nms_batched": [(stream_counts["nms_batched"] + nms_counts["nms_batched"],
+                         records["nms_batched"])],
+        "nms_sorted": [(nms_counts["nms_sorted"], records["nms_sorted"])],
+        "resize_normalize": [(staged_counts["resize_normalize"], e)],
+    }
+    losses = {}
+    for name, parts in terms.items():
+        losses[name] = sum(n * (r["device_ms"] - r["bound_ms"]) for n, r in parts)
+        records[name]["device_loss_ms"] = losses[name]
+    slow = {name for name, parts in terms.items()
+            if any(r["device_ms"] > 2 * r["bound_ms"] for _, r in parts)}
+    if e["device_ms"] > e["library_device_ms"]:
+        slow.add("resize_normalize")
+    order = sorted(losses, key=losses.get, reverse=True)
+    log("device loss over phases 5-8, launches x (device ms - bound ms): "
+        + ", ".join(f"{n} {losses[n]:.4f} ms" for n in order)
+        + f"; under half their bound: {sorted(slow)}; the two that lose most: "
+        + ", ".join([n for n in order if n in slow][:2]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1162,6 +1369,7 @@ def main(argv=None) -> int:
                 "resize_normalize": staged_counts, "track_scan": staged_counts}
     for name, rec in records.items():
         rec["launches"] = own_path[name][name]
+    rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

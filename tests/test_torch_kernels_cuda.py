@@ -10,13 +10,20 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
   and in the kernel's pre-scaled exp2.
 - kernel B (grouped NMS), 256 frames of 192 slots with 30 class groups, score
   ties, duplicates, invalid and padded slots (``chip_smoke.nms_problem``, the
-  smoke run's generator): keep sets identical;
+  smoke run's generator): keep sets identical; and the cases its sorted,
+  tiled build and its division filter risk: N = 1, 31, 33, 129 and 512, one
+  group and a group a slot, ids -7 and 2^30, nothing valid, a suppression
+  chain of 95 links across words, an IoU exactly at the threshold, and
+  thresholds 0 and -0.1; the stream's 32 × 192 through ``batched_nms``;
 - kernel C (batched NMS), the stream's 960 problems (32 frames × 30 classes)
-  of 64 slots, and a ragged 7-slot case: keep sets identical;
+  of 64 slots, and a ragged 7-slot case: keep sets identical; and the same
+  edge cases up to 128 slots, at 3 and 5 problems;
 - kernel D (sorted NMS), 1,920 problems (64 frames × 30 classes) of 512
   slots, and a 300-slot case: keep sets identical;
 - kernel E (resize + normalize), 8 native 360×480 frames to 240×320 and
-  240×320 frames to the pyramid's 176×240 and 304×400: abs <= 1e-3;
+  240×320 frames to the pyramid's 176×240 and 304×400, and edge cases (1×1,
+  7×13 ↔ 5×9, a batch at an odd byte offset, 1 and 13 frames, another mean
+  and scale): abs <= 1e-3, one launch each;
 - kernel F (tracker scan), over the base tracker's bf16 features of a
   360×480 clip: one step (T = 2, anchors at frame 0 and 1; boxes <= 1e-3 px,
   peaks <= 1e-4, alive equal) in bf16 and float32, and a 16-step rollout
@@ -92,6 +99,105 @@ def test_sorted_nms_kernel_equals_plain_version(cuda, B, N):
     torch.cuda.synchronize()
     assert kd.nms_sorted_kernel.launches == before + 1
     assert torch.equal(got, kd.nms_sorted_greedy(boxes, scores, valid, 0.3))
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def _nms_edge_problem(case):
+    """(boxes, scores, valid, groups, thresh) of one edge case, numpy."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    N, thresh = {"N1": 1, "N31": 31, "N33": 33, "N127": 127, "N128": 128, "N129": 129,
+                 "N512": 512}.get(case, 96), 0.3
+    boxes, scores, valid, groups = nms_problem(3, N, seed=N, groups=5)
+    if case == "one_group":
+        groups[:] = 4
+    elif case == "group_per_slot":
+        groups[:] = np.arange(N, dtype=np.int32)
+    elif case == "ids":  # negative and large ids
+        groups = np.where(groups % 2 == 0, np.int32(-7), np.int32(2**30)).astype(np.int32)
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "chain":
+        # a staircase of 96 boxes, 3 px apart, scores falling, at scattered
+        # slots: each box overlaps the next by IoU 8/14 > 0.5 and the one
+        # after by 5/17 < 0.5, so the suppression chain is 95 links long
+        # and crosses every 32-slot word
+        perm = rng.permutation(N)
+        k = np.arange(N, dtype=np.float32)
+        stair = np.stack([3 * k, 0 * k, 3 * k + 10, 0 * k + 10], 1)
+        boxes = np.broadcast_to(stair[perm], (3, N, 4)).copy()
+        scores = np.broadcast_to((1 - k / 128)[perm], (3, N)).astype(np.float32).copy()
+        valid[:] = True
+        groups[:] = 1
+        thresh = 0.5
+    elif case == "at_thresh":
+        # IoU 100/200 = 0.5 exactly in float32 (offset 1): at thresh 0.5
+        # neither box suppresses the other; the third, a copy of the first
+        # with a lower score, is suppressed
+        boxes = np.array([[[0, 0, 9, 9], [0, 0, 9, 19], [0, 0, 9, 9]]] * 3, np.float32)
+        scores = np.array([[0.9, 0.8, 0.7]] * 3, np.float32)
+        valid = np.ones((3, 3), bool)
+        groups = np.zeros((3, 3), np.int32)
+        thresh = 0.5
+    elif case == "thresh0":
+        thresh = 0.0
+    elif case == "thresh-0.1":
+        thresh = -0.1
+    return boxes, scores, valid, groups, thresh
+
+
+GROUPED_EDGES = ["N1", "N31", "N33", "N129", "N512", "one_group", "group_per_slot", "ids",
+                 "all_invalid", "chain", "at_thresh", "thresh0", "thresh-0.1"]
+BATCHED_EDGES = ["N1", "N31", "N33", "N127", "N128", "all_invalid", "chain", "at_thresh",
+                 "thresh0", "thresh-0.1"]
+
+
+@pytest.mark.parametrize("case", GROUPED_EDGES)
+def test_grouped_nms_kernel_edge_cases(cuda, case):
+    """Kernel B's keep sets equal the plain version's: sizes around a word
+    and the limit, one group and a group a slot, any int32 ids, nothing
+    valid, a chain longer than 32, an IoU exactly at the threshold, and
+    thresholds 0 and below (the zero-intersection shortcut's edge)."""
+    *problem, thresh = _nms_edge_problem(case)
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in problem]
+    before = kb.nms_grouped_kernel.launches
+    got = kb.nms_grouped_kernel(*arrs, thresh)
+    torch.cuda.synchronize()
+    assert kb.nms_grouped_kernel.launches == before + 1
+    want = kb.nms_unsorted_fixpoint(*arrs[:3], thresh, groups=arrs[3])
+    assert torch.equal(got, want)
+    if case == "at_thresh":
+        assert got.tolist() == [[True, True, False]] * 3
+    if case == "chain":  # every other step of the staircase survives
+        assert int(got.sum()) == 3 * 48
+
+
+@pytest.mark.parametrize("case", BATCHED_EDGES)
+@pytest.mark.parametrize("B", [3, 5])
+def test_batched_nms_kernel_edge_cases(cuda, case, B):
+    """Kernel C (a warp a problem, four a block): the same edge cases up to
+    128 slots, at batches that fill the last block or not."""
+    boxes, scores, valid, _, thresh = _nms_edge_problem(case)
+    reps = -(-B // boxes.shape[0])
+    arrs = [torch.from_numpy(np.concatenate([a] * reps)[:B]).to(cuda) for a in (boxes, scores, valid)]
+    before = kc.nms_batched_kernel.launches
+    got = kc.nms_batched_kernel(*arrs, thresh)
+    torch.cuda.synchronize()
+    assert kc.nms_batched_kernel.launches == before + 1
+    assert torch.equal(got, kb.nms_unsorted_fixpoint(*arrs, thresh))
+
+
+def test_batched_nms_routes_192_slots_to_the_grouped_kernel(cuda):
+    """The stream's MGP dedup shape for one class, 32 frames of 192 slots:
+    ``batched_nms`` launches B once with one group, and not C."""
+    from vdetlib_tpu_torch.kernels.nms import batched_nms
+
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in nms_problem(32, 192, seed=9))
+    before_b, before_c = kb.nms_grouped_kernel.launches, kc.nms_batched_kernel.launches
+    got = batched_nms(boxes, scores, valid, 0.3)
+    torch.cuda.synchronize()
+    assert kb.nms_grouped_kernel.launches == before_b + 1
+    assert kc.nms_batched_kernel.launches == before_c
+    assert torch.equal(got, kb.nms_unsorted_fixpoint(boxes, scores, valid, 0.3))
     assert 0 < int(got.sum()) < int(valid.sum())
 
 
@@ -178,6 +284,46 @@ def test_resize_kernel_matches_plain_version(cuda, src, dst):
     assert ke.fused_resize_normalize_kernel.launches == before + 1
     want = ke.fused_resize_normalize(frames, dst, pixel_scale=0.5)
     assert got.shape == want.shape == (8,) + dst + (3,)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def _resize_edge_frames(case, dev):
+    """(frames on ``dev``, out_hw, pixel_mean, pixel_scale) of one edge case."""
+    rng = np.random.default_rng(len(case))
+    mean, scale = ke.PIXEL_MEAN, 1.0
+
+    def video(B, H, W):
+        return torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev)
+
+    if case == "1x1":
+        return video(1, 1, 1), (1, 1), mean, scale
+    if case == "down_odd":
+        return video(3, 7, 13), (5, 9), mean, scale
+    if case == "up_odd":
+        return video(3, 5, 9), (7, 13), mean, scale
+    if case == "odd_offset":  # frames of 273 bytes: the batch starts at byte 273
+        return video(4, 7, 13)[1:], (5, 9), mean, scale
+    if case == "B1":
+        return video(1, 360, 480), (240, 320), mean, scale
+    if case == "B13":
+        return video(13, 240, 320), (304, 400), mean, scale
+    assert case == "mean_scale"
+    return video(2, 36, 52), (24, 34), (1.5, -20.25, 250.0), 0.017
+
+
+@pytest.mark.parametrize("case", ["1x1", "down_odd", "up_odd", "odd_offset", "B1", "B13",
+                                  "mean_scale"])
+def test_resize_kernel_edge_cases(cuda, case):
+    """Sizes of 1 and odd sizes (rows of 3, 21 and 27 bytes, output rows that
+    are not 16-byte aligned), a batch at an odd byte offset, one frame and
+    13, another mean and scale: abs <= 1e-3, one launch each."""
+    frames, hw, mean, scale = _resize_edge_frames(case, cuda)
+    before = ke.fused_resize_normalize_kernel.launches
+    got = ke.fused_resize_normalize_kernel(frames, hw, mean, scale)
+    torch.cuda.synchronize()
+    assert ke.fused_resize_normalize_kernel.launches == before + 1
+    want = ke.fused_resize_normalize(frames, hw, mean, scale)
+    assert got.shape == want.shape == (frames.shape[0],) + hw + (3,)
     assert float((got - want).abs().max()) <= 1e-3
 
 

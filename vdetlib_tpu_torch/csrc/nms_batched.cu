@@ -12,140 +12,61 @@
 // steps as the longest suppression chain.
 //
 // What bounds it on an H100: neither bytes nor flops. The stream's call is
-// B = 32 frames x 30 classes = 960 problems of N = 64 slots: 4M IoUs (~60
-// MFLOP, about 1 us at the float32 peak) and 1.3 MB in and out (under 1 us at
-// 3.35 TB/s). What is left is latency: the dependent Jacobi steps, each a
-// barrier, and the launch.
+// B = 32 frames x 30 classes = 960 problems of N = 64 slots: ~1.1M IoUs the
+// fixpoint needs (~17 MFLOP, well under 1 us at the float32 peak) and 1.3
+// MB in and out (0.4 us at 3.35 TB/s). What is left is latency: each
+// problem's chain of dependent phases and steps, and the launch.
 //
 // Design. The TPU kernel packs 128/N problems side by side in one 128-lane
-// row; on Hopper that layout buys nothing. Instead one thread owns one slot,
-// ceil(N/32) warps own one problem, and several problems share a 256-thread
-// block (8 of N <= 32, 4 of N <= 64, 2 of N <= 128), so a block at the
-// stream's shape holds 4 problems and all 960 problems fit in 240 blocks
-// resident at once. Each thread builds its adjacency row once, as a bitmask
-// of at most 4 words in registers. The keep sets of the block's problems are
-// bitmasks in shared memory, rebuilt every step from warp ballots and double
-// buffered, so a Jacobi step is <= 4 ANDs per thread and one barrier;
-// __syncthreads_or doubles as the convergence test, and the block stops when
-// none of its problems changed (a step past a problem's fixpoint is a no-op).
-// The step count is capped at N like the reference's loop.
+// row; on Hopper that layout buys nothing. Here one block owns one problem
+// and runs kernel B's block body (nms_common.cuh::vdet_nms_block) without
+// groups: it compacts the valid slots in index order, builds the adjacency
+// in 32 x 32 warp tiles (a lane a row, each pair's IoU once, the column's
+// box broadcast to the warp, the reverse bits by ballot), a warp a tile,
+// and runs the Jacobi steps with a thread a row. The wrapper sizes the
+// block (kernels/nms_grouped.py::launch_threads): at the stream's 64 slots,
+// three warps for the three tiles, so no warp walks more than 32 columns.
 //
 // Exactness: the IoU is computed in the reference's op order with
 // round-to-nearest intrinsics (nms_common.cuh), and this file is compiled
-// with -fmad=false; never with --use_fast_math. Scores of invalid slots are
-// masked to -inf for the precedence test only; validity itself comes from
-// the mask, never from a sentinel value.
+// with -fmad=false; never with --use_fast_math. The IoU is symmetric bit
+// for bit, so computing it once a pair changes no decision.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include "nms_common.cuh"
 
 namespace {
 
-constexpr int kBlockThreads = 256;
 constexpr int kMaxN = 128;
-constexpr int kMaxRowWords = kMaxN / 32;
-constexpr int kBlockWords = kBlockThreads / 32;
+constexpr int kMaxThreads = 1024;
 
-// P = N rounded up to a multiple of 32 (threads per problem); blockDim.x is
-// (kBlockThreads / P) * P.
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 nms_batched_kernel(const float* __restrict__ boxes,    // (B, N, 4)
                    const float* __restrict__ scores,   // (B, N)
                    const uint8_t* __restrict__ valid,  // (B, N) bool
                    uint8_t* __restrict__ keep,         // (B, N) bool
-                   int B, int N, int P, float thresh, float offset) {
-    __shared__ float sx1[kBlockThreads], sy1[kBlockThreads], sx2[kBlockThreads],
-        sy2[kBlockThreads], sarea[kBlockThreads], sscore[kBlockThreads];
-    __shared__ uint32_t svalid[kBlockWords];
-    __shared__ uint32_t kbuf[2][kBlockWords];
-
-    const int tid = threadIdx.x;
-    const int per_block = blockDim.x / P;
-    const int lp = tid / P;              // problem within the block
-    const int i = tid - lp * P;          // slot within the problem
-    const int b = blockIdx.x * per_block + lp;
-    const int nw = P / 32;               // bitmask words of one problem
-    const int w0 = lp * nw;              // its first word in the block's bitmasks
-    const int s0 = lp * P;               // its first slot in shared memory
-    const bool in = i < N && b < B;
-    const size_t g = static_cast<size_t>(b) * N + i;
-
-    bool vi = false;
-    if (in) {
-        const float4 bx = reinterpret_cast<const float4*>(boxes)[g];
-        sx1[tid] = bx.x;
-        sy1[tid] = bx.y;
-        sx2[tid] = bx.z;
-        sy2[tid] = bx.w;
-        sarea[tid] = vdet_area_rn(bx.x, bx.y, bx.z, bx.w, offset);
-        vi = valid[g] != 0;
-        sscore[tid] = vi ? scores[g] : -INFINITY;
-    }
-    const uint32_t vword = __ballot_sync(0xffffffffu, vi);
-    if ((tid & 31) == 0) {
-        svalid[tid >> 5] = vword;
-        kbuf[0][tid >> 5] = vword;  // Jacobi starts from keep = valid
-    }
-    __syncthreads();
-
-    // adjacency row i: bit j set iff j suppresses i
-    uint32_t row[kMaxRowWords];
-#pragma unroll
-    for (int w = 0; w < kMaxRowWords; ++w) {
-        uint32_t bits = 0;
-        if (in && w < nw) {
-            const float si = sscore[tid];
-            const uint32_t vw = svalid[w0 + w];
-            for (int l = 0; l < 32; ++l) {
-                const int j = w * 32 + l;
-                if (j >= N) break;
-                if (!((vw >> l) & 1u)) continue;
-                const float sj = sscore[s0 + j];
-                if (!(sj > si || (sj == si && j < i))) continue;
-                const float v = vdet_iou_rn(sx1[tid], sy1[tid], sx2[tid], sy2[tid], sarea[tid],
-                                            sx1[s0 + j], sy1[s0 + j], sx2[s0 + j], sy2[s0 + j],
-                                            sarea[s0 + j], offset);
-                if (v > thresh) bits |= 1u << l;
-            }
-        }
-        row[w] = bits;
-    }
-
-    bool ki = vi;
-    int cur = 0;
-    for (int it = 0; it < N; ++it) {
-        bool sup = false;
-#pragma unroll
-        for (int w = 0; w < kMaxRowWords; ++w) {
-            if (w < nw) sup |= (row[w] & kbuf[cur][w0 + w]) != 0u;
-        }
-        const bool nk = vi && !sup;
-        const uint32_t kword = __ballot_sync(0xffffffffu, nk);
-        if ((tid & 31) == 0) kbuf[cur ^ 1][tid >> 5] = kword;
-        const int changed = __syncthreads_or(nk != ki);
-        ki = nk;
-        cur ^= 1;
-        if (!changed) break;
-    }
-    if (in) keep[g] = ki ? 1 : 0;
+                   int N, float thresh, float offset) {
+    vdet_nms_block<false>(boxes, scores, valid, nullptr, keep, N, thresh, offset);
 }
 
 }  // namespace
 
-// boxes (B, N, 4) f32, scores (B, N) f32, valid (B, N) bool → keep (B, N)
-// bool. 1 <= N <= 128, boxes 16-byte aligned. Returns cudaGetLastError().
+// boxes (B, N, 4) f32 (16-byte aligned), scores (B, N) f32, valid (B, N)
+// bool → keep (B, N) bool; 1 <= N <= 128, `threads` a multiple of 32 in
+// [N, 1024]. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// launch the kernel cannot take.
 extern "C" int vdet_nms_batched(const void* boxes, const void* scores, const void* valid,
-                                void* keep, int B, int N, float thresh, float offset,
-                                void* stream) {
-    const int P = ((N + 31) / 32) * 32;
-    const int per_block = kBlockThreads / P;
-    const int blocks = (B + per_block - 1) / per_block;
-    nms_batched_kernel<<<blocks, per_block * P, 0, static_cast<cudaStream_t>(stream)>>>(
+                                void* keep, int B, int N, int threads, float thresh,
+                                float offset, void* stream) {
+    if (B < 1 || N < 1 || N > kMaxN || threads < N || threads > kMaxThreads ||
+        threads % 32 != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    nms_batched_kernel<<<B, threads, vdet_nms_smem_bytes(N),
+                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(boxes), static_cast<const float*>(scores),
-        static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), B, N, P, thresh,
-        offset);
+        static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), N, thresh, offset);
     return static_cast<int>(cudaGetLastError());
 }

@@ -10,28 +10,37 @@
 // keep = valid & !any(adj[i] & keep), reached by Jacobi iteration in as many
 // steps as the longest suppression chain.
 //
-// What bounds it on an H100: latency of the fixpoint's dependent steps, not
-// bytes or flops. The production call is B = T = 256 frames of N = 192
-// slots: ~9.4M IoUs in all, a few hundred KB in and out.
+// What bounds it on an H100: the IoUs and the block's barriers, not bytes.
+// The fused dedup is T = 64-256 frames of N = 192 slots in 30 class groups
+// (~150 valid, ~360 IoUs a frame needed); the stream's MGP dedup reaches it
+// through batched_nms as 960 problems (32 frames x 30 classes) of 192 slots
+// in one group (~11,000 IoUs each). A few hundred KB move either way.
 //
-// Design: one block per problem (frame), one thread per slot (N padded to a
-// multiple of 32, at most 512). Each thread builds its adjacency row once as
-// a bitmask held in registers (N/32 <= 16 words); the keep set is a bitmask
-// in shared memory, rebuilt every step from warp ballots and double
-// buffered, so a Jacobi step is N/32 ANDs per thread plus one barrier
-// (__syncthreads_or doubles as the convergence test). The step count is
-// capped at N like the reference's loop.
+// Design. One block per problem, `threads` (>= N, a multiple of 32, chosen
+// by the wrapper: kernels/nms_grouped.py::launch_threads) so that the grid
+// fills the card; the block body is nms_common.cuh::vdet_nms_block, shared
+// with kernel C. Only valid slots matter (an invalid slot is never kept and
+// never suppresses): the block compacts them, ranks them by (group, index)
+// so that each group is one segment (the valid position where all share
+// one group, else a count split between several threads a slot), and builds
+// the adjacency in 32 x 32 warp tiles over that order: a lane a row, each
+// pair's IoU once, the column's box broadcast to the warp, the reverse bits
+// by ballot, no atomics; a tile whose rows and columns hold no common group
+// is skipped, and a zero intersection skips the division. At 30 groups most
+// tiles are skipped; at one group each pair is computed once, the least the
+// fixpoint needs. The Jacobi steps follow: a thread a row, N/32 word ANDs,
+// the keep set a bitmask from warp ballots, double buffered,
+// __syncthreads_or as the convergence test, capped at N steps.
 //
 // Exactness: the keep set is a threshold decision on the IoU, so the IoU is
 // computed in the reference's op order (vdetlib_tpu/geometry/boxes.py:47-57)
 // with round-to-nearest intrinsics (nms_common.cuh), and this file is compiled with
 // -fmad=false (no contraction of a*b+c into one rounding); never with
-// --use_fast_math. Scores of invalid slots are masked to -inf for the
-// precedence test only; validity itself comes from the mask, never from a
-// sentinel value.
+// --use_fast_math. The IoU is symmetric bit for bit, so computing it once a
+// pair changes no decision. Group ids are compared, never used as indices,
+// so any int32 is a group.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include "nms_common.cuh"
@@ -39,96 +48,39 @@
 namespace {
 
 constexpr int kMaxSlots = 512;
-constexpr int kMaxWords = kMaxSlots / 32;
+constexpr int kMaxThreads = 1024;
+constexpr int kSmemDefault = 48 * 1024;  // above it only after an opt-in
 
-__global__ void nms_grouped_kernel(const float* __restrict__ boxes,   // (B, N, 4)
-                                   const float* __restrict__ scores,  // (B, N)
-                                   const uint8_t* __restrict__ valid, // (B, N) bool
-                                   const int32_t* __restrict__ groups,// (B, N)
-                                   uint8_t* __restrict__ keep,        // (B, N) bool
-                                   int N, float thresh, float offset) {
-    __shared__ float sx1[kMaxSlots], sy1[kMaxSlots], sx2[kMaxSlots], sy2[kMaxSlots];
-    __shared__ float sarea[kMaxSlots], sscore[kMaxSlots];
-    __shared__ int32_t sgroup[kMaxSlots];
-    __shared__ uint32_t svalid[kMaxWords];
-    __shared__ uint32_t kbuf[2][kMaxWords];
-
-    const int b = blockIdx.x;
-    const int i = threadIdx.x;
-    const int nw = (N + 31) / 32;
-    const bool in = i < N;
-    const size_t base = static_cast<size_t>(b) * N;
-
-    bool vi = false;
-    if (in) {
-        const float* bx = boxes + (base + i) * 4;
-        sx1[i] = bx[0];
-        sy1[i] = bx[1];
-        sx2[i] = bx[2];
-        sy2[i] = bx[3];
-        sarea[i] = vdet_area_rn(bx[0], bx[1], bx[2], bx[3], offset);
-        vi = valid[base + i] != 0;
-        sscore[i] = vi ? scores[base + i] : -INFINITY;
-        sgroup[i] = groups[base + i];
-    }
-    const uint32_t vword = __ballot_sync(0xffffffffu, vi);
-    if ((i & 31) == 0) {
-        svalid[i >> 5] = vword;
-        kbuf[0][i >> 5] = vword;  // Jacobi starts from keep = valid
-    }
-    __syncthreads();
-
-    // adjacency row i: bit j set iff j suppresses i
-    uint32_t row[kMaxWords];
-#pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
-        uint32_t bits = 0;
-        if (in && w < nw) {
-            const float si = sscore[i];
-            const int32_t gi = sgroup[i];
-            const uint32_t vw = svalid[w];
-            for (int l = 0; l < 32; ++l) {
-                const int j = w * 32 + l;
-                if (j >= N) break;
-                if (!((vw >> l) & 1u) || sgroup[j] != gi) continue;
-                const float sj = sscore[j];
-                if (!(sj > si || (sj == si && j < i))) continue;
-                const float v = vdet_iou_rn(sx1[i], sy1[i], sx2[i], sy2[i], sarea[i],
-                                       sx1[j], sy1[j], sx2[j], sy2[j], sarea[j], offset);
-                if (v > thresh) bits |= 1u << l;
-            }
-        }
-        row[w] = bits;
-    }
-
-    bool ki = vi;
-    int cur = 0;
-    for (int it = 0; it < N; ++it) {
-        bool sup = false;
-#pragma unroll
-        for (int w = 0; w < kMaxWords; ++w) {
-            if (w < nw) sup |= (row[w] & kbuf[cur][w]) != 0u;
-        }
-        const bool nk = vi && !sup;
-        const uint32_t kword = __ballot_sync(0xffffffffu, nk);
-        if ((i & 31) == 0) kbuf[cur ^ 1][i >> 5] = kword;
-        const int changed = __syncthreads_or(nk != ki);
-        ki = nk;
-        cur ^= 1;
-        if (!changed) break;
-    }
-    if (in) keep[base + i] = ki ? 1 : 0;
+__global__ void __launch_bounds__(kMaxThreads)
+nms_grouped_kernel(const float* __restrict__ boxes,   // (B, N, 4)
+                   const float* __restrict__ scores,  // (B, N)
+                   const uint8_t* __restrict__ valid, // (B, N) bool
+                   const int32_t* __restrict__ groups,// (B, N)
+                   uint8_t* __restrict__ keep,        // (B, N) bool
+                   int N, float thresh, float offset) {
+    vdet_nms_block<true>(boxes, scores, valid, groups, keep, N, thresh, offset);
 }
 
 }  // namespace
 
-// boxes (B, N, 4) f32, scores (B, N) f32, valid (B, N) bool, groups (B, N)
-// int32 → keep (B, N) bool. 1 <= N <= 512. Returns cudaGetLastError().
+// boxes (B, N, 4) f32 (16-byte aligned), scores (B, N) f32, valid (B, N)
+// bool, groups (B, N) int32 → keep (B, N) bool; 1 <= N <= 512, `threads` a
+// multiple of 32 in [N, 1024]. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a launch the kernel cannot take.
 extern "C" int vdet_nms_grouped(const void* boxes, const void* scores, const void* valid,
-                                const void* groups, void* keep, int B, int N, float thresh,
-                                float offset, void* stream) {
-    const int threads = ((N + 31) / 32) * 32;
-    nms_grouped_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                const void* groups, void* keep, int B, int N, int threads,
+                                float thresh, float offset, void* stream) {
+    if (B < 1 || N < 1 || N > kMaxSlots || threads < N || threads > kMaxThreads ||
+        threads % 32 != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int smem = vdet_nms_smem_bytes(N);
+    if (smem > kSmemDefault) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            nms_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    nms_grouped_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(boxes), static_cast<const float*>(scores),
         static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(groups),
         static_cast<uint8_t*>(keep), N, thresh, offset);

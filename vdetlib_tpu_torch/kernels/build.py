@@ -39,16 +39,16 @@ _F = ctypes.c_float
 KERNELS = {
     # flow_level(i1, i2, out, P, H, W, tile_h, search, radius, temperature, stream)
     "flow_level": (("vdet_flow_level", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)), ()),
-    # nms_grouped(boxes, scores, valid, groups, keep, B, N, thresh, offset, stream).
-    # No FMA contraction: keep sets are threshold decisions on an IoU whose
-    # op order must round exactly like the reference's.
+    # nms_grouped(boxes, scores, valid, groups, keep, B, N, threads, thresh,
+    # offset, stream). No FMA contraction: keep sets are threshold decisions
+    # on an IoU whose op order must round exactly like the reference's.
     "nms_grouped": (
-        ("vdet_nms_grouped", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P)),
+        ("vdet_nms_grouped", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
         ("-fmad=false",),
     ),
-    # nms_batched(boxes, scores, valid, keep, B, N, thresh, offset, stream)
+    # nms_batched(boxes, scores, valid, keep, B, N, threads, thresh, offset, stream)
     "nms_batched": (
-        ("vdet_nms_batched", (_P, _P, _P, _P, _I, _I, _F, _F, _P)),
+        ("vdet_nms_batched", (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
         ("-fmad=false",),
     ),
     # nms_sorted(sorted_boxes, sorted_valid, sorted_keep, B, N, thresh, offset, stream)
@@ -153,6 +153,14 @@ def build_log(name: str) -> str:
     """ptxas report of the last build of ``name`` (empty if none)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.is_file() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the launch plans' input)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -114,11 +114,6 @@ def tile_rows(P: int, H: int, W: int, search: int, radius: int, sms: int) -> int
     return best[1]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.08):
     """Batched flow level: (P, H, W) bf16 pairs → (P, H, W, 2) float32 flow.
 
@@ -142,7 +137,7 @@ def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.
                          f"got {tuple(i1.shape)}")
     if search < 0 or radius < 0:
         raise ValueError(f"flow_level kernel: search {search}, radius {radius} must be >= 0")
-    tile_h = tile_rows(P, H, W, search, radius, _sm_count(i1.device.index))
+    tile_h = tile_rows(P, H, W, search, radius, build.sm_count(i1.device.index))
     out = torch.empty((P, H, W, 2), dtype=torch.float32, device=i1.device)
     fn = build.load("flow_level")
     rc = fn(

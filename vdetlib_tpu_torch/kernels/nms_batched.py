@@ -17,9 +17,10 @@ import torch
 
 from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET
 from vdetlib_tpu_torch.kernels import build
-from vdetlib_tpu_torch.kernels.nms_grouped import check_nms_inputs, nms_unsorted_fixpoint
+from vdetlib_tpu_torch.kernels.nms_grouped import (check_nms_inputs, launch_threads,
+                                                   nms_unsorted_fixpoint)
 
-MAX_SLOTS = 128  # one thread per slot, adjacency rows of <= 4 words in registers
+MAX_SLOTS = 128  # a block a problem, as kernel B's; larger N take B
 
 
 def nms_batched_kernel(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFSET):
@@ -34,7 +35,8 @@ def nms_batched_kernel(boxes, scores, valid, thresh: float, offset: float = LEGA
     fn = build.load("nms_batched")
     rc = fn(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), keep.data_ptr(), B, N,
-        float(thresh), float(offset), torch.cuda.current_stream(boxes.device).cuda_stream,
+        launch_threads(B, N, build.sm_count(boxes.device.index)), float(thresh), float(offset),
+        torch.cuda.current_stream(boxes.device).cuda_stream,
     )
     build.check_launch("nms_batched", rc)
     nms_batched_kernel.launches += 1

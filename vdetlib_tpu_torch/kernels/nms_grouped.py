@@ -8,16 +8,67 @@ oracle in ``tests/oracle/nms.py``.
 
 :func:`nms_grouped_kernel` is the wrapper: CPU tensors go through the plain
 :func:`nms_unsorted_fixpoint`, CUDA tensors through ``csrc/nms_grouped.cu``.
+The wrapper owns the kernel's launch plan: the threads of a block
+(:func:`launch_threads`) and its shared memory (:func:`smem_bytes`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET, pairwise_iou
+from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET, box_area, pairwise_iou
 from vdetlib_tpu_torch.kernels import build
 
-MAX_SLOTS = 512  # one thread per slot, adjacency rows of <= 16 words in registers
+MAX_SLOTS = 512  # a block a problem, at least a thread a slot
+MAX_THREADS = 1024
+THREADS_PER_SM = 1024  # what the plan hands out: a block of 1024 runs at <= 64 registers
+
+
+def launch_threads(B: int, N: int, sms: int) -> int:
+    """Block size of kernels B and C for B problems of N slots on ``sms``
+    SMs: at least a thread a slot (a multiple of 32, for the Jacobi steps);
+    beyond that as many warps as spread ``THREADS_PER_SM`` threads over each
+    SM, but no more than the adjacency has tiles (32 rows × 32 columns, on
+    and above the diagonal) and at most 1024. A few problems take wide
+    blocks, many take a thread a slot."""
+    nw = -(-N // 32)
+    least = 32 * nw
+    tiles = 32 * nw * (nw + 1) // 2
+    share = THREADS_PER_SM * sms // B // 32 * 32
+    return min(MAX_THREADS, max(least, min(share, tiles)))
+
+
+def smem_bytes(N: int) -> int:
+    """A block's dynamic shared memory (mirrors ``nms_common.cuh::
+    vdet_nms_smem_bytes``): per slot its box, area, score, group, index,
+    valid-order group and rank, a keep byte, and its adjacency row of
+    ⌈N/32⌉ words."""
+    return N * (16 + 6 * 4) + N * -(-N // 32) * 4 + N
+
+
+def iou_exceeds(a, b, thresh: float, offset: float = LEGACY_OFFSET):
+    """``pairwise_iou(a, b) > thresh`` decided as kernels B and C decide it
+    (``nms_common.cuh::vdet_iou_above_rn``), in float32: a zero
+    intersection gives ``0 > thresh``; within the filter's ranges a pair
+    whose intersection lies above ``RN(t_hi · union)`` or below
+    ``RN(t_lo · union)`` is decided without the division; the rest divide.
+    a (..., N, 4), b (..., M, 4) float32 → (..., N, M) bool."""
+    t = float(np.float32(thresh))
+    ix1 = torch.maximum(a[..., :, None, 0], b[..., None, :, 0])
+    iy1 = torch.maximum(a[..., :, None, 1], b[..., None, :, 1])
+    ix2 = torch.minimum(a[..., :, None, 2], b[..., None, :, 2])
+    iy2 = torch.minimum(a[..., :, None, 3], b[..., None, :, 3])
+    inter = (ix2 - ix1 + offset).clamp(min=0.0) * (iy2 - iy1 + offset).clamp(min=0.0)
+    uni = (box_area(a, offset)[..., :, None] + box_area(b, offset)[..., None, :]) - inter
+    t32 = torch.tensor(t, dtype=torch.float32)
+    hi = (t32 * (1 + 2.0**-20)) * uni
+    lo = (t32 * (1 - 2.0**-20)) * uni
+    zero = inter == 0
+    in_range = (2.0**-60 <= t <= 2.0**60) & (uni >= 2.0**-60) & (uni <= 2.0**60)
+    sure = zero | (in_range & ((inter > hi) | (inter < lo)))
+    decided = torch.where(zero, torch.tensor(0.0 > t), inter > hi)
+    return torch.where(sure, decided, pairwise_iou(a, b, offset=offset) > t)
 
 
 def nms_unsorted_fixpoint(boxes, scores, valid, thresh: float,
@@ -89,8 +140,8 @@ def nms_grouped_kernel(boxes, scores, valid, groups, thresh: float,
     fn = build.load("nms_grouped")
     rc = fn(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), groups.data_ptr(),
-        keep.data_ptr(), B, N, float(thresh), float(offset),
-        torch.cuda.current_stream(dev).cuda_stream,
+        keep.data_ptr(), B, N, launch_threads(B, N, build.sm_count(dev.index)), float(thresh),
+        float(offset), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch("nms_grouped", rc)
     nms_grouped_kernel.launches += 1
