@@ -22,10 +22,13 @@ Phases, each synchronised and each fatal on failure:
    960 problems of 192 slots with one group (the stream's MGP dedup for
    one class and for a chunk's 32 frames × 30 classes); C, batched NMS:
    the stream's 960 problems (32 frames × 30 classes) of 64 slots; D,
-   sorted NMS: 1,920 problems (64 frames × 30 classes) of 512 slots, its
-   torch sort and scatter timed apart. The NMS problems hold ties, invalid
-   and padded slots, their keep sets must be identical, and the Jacobi
-   steps of B's and C's fixpoints are counted with the plain version; E,
+   sorted NMS: 1,920 problems (64 frames × 30 classes) of 512 slots, dense
+   and from phase 7's protos (the tool's own, ~17 valid a problem), and of
+   2,048 dense slots, timed as the whole call, which must be one kernel on
+   the device; its bound counts the valid slots' boxes and scores only.
+   The NMS problems hold ties, invalid and padded slots, their keep sets
+   must be identical, and the Jacobi steps of B's and C's fixpoints are
+   counted with the plain version; E,
    resize + normalize: 96 native 360×480 frames to 240×320 and 240×320
    frames to the pyramid's 176×240 and 304×400, abs <= 1e-3, timed at each
    in batches of 8 beside ``F.interpolate`` + mean; F, tracker scan, on the staged
@@ -49,8 +52,8 @@ Phases, each synchronised and each fatal on failure:
    videos of 96 and 100 frames (the second ends in a partial chunk of 4);
    kernels A, B and C must launch;
 7. frame NMS: ``frame_nms(backend="pallas")`` over synthetic protos of 64
-   frames × 30 classes equals the ``host`` backend at 512 boxes (kernel D)
-   and at 128 (kernel C);
+   frames × 30 classes equals the ``host`` backend at 512 and 1,024 boxes
+   (kernel D; frames of more than 512 detections) and at 128 (kernel C);
 8. staged detect → track: the same models through the stages' entry
    points at the detect and track tools' defaults, frames in memory:
    ``det_vid`` with ``device_resize`` over 96 native 360×480 frames with 128
@@ -302,22 +305,23 @@ def fixpoint_iou_count(scores, valid, groups=None) -> int:
     return int(pair.sum())
 
 
-def greedy_iou_count(boxes, scores, valid, thresh, chunk=128) -> int:
-    """IoUs the sorted greedy walk needs on this data: for each kept box i,
-    one per later valid box not yet suppressed when step i runs."""
+def greedy_iou_count(boxes, scores, valid, thresh, keep) -> int:
+    """IoUs the sorted greedy walk needs on this data, given its keep set
+    (input order): for each kept box i, one per later valid box not yet
+    suppressed when step i runs."""
     from vdetlib_tpu_torch.geometry.boxes import pairwise_iou
-    from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_greedy, visit_order
+    from vdetlib_tpu_torch.kernels.nms_sorted import visit_order
 
-    total = 0
+    total, n = 0, boxes.shape[1]
+    chunk = max(1, 2**23 // (n * n))
+    idx = torch.arange(n, device=boxes.device)
+    later = idx[None, :] > idx[:, None]  # (i, j): j after i
     for c in range(0, boxes.shape[0], chunk):
         b, s, v = boxes[c:c + chunk], scores[c:c + chunk], valid[c:c + chunk]
         order = visit_order(s, v)
         sb = torch.gather(b, 1, order[..., None].expand(b.shape))
         sv = torch.gather(v, 1, order)
-        kept = torch.gather(nms_sorted_greedy(b, s, v, thresh), 1, order)
-        n = sb.shape[1]
-        idx = torch.arange(n, device=b.device)
-        later = idx[None, :] > idx[:, None]  # (i, j): j after i
+        kept = torch.gather(keep[c:c + chunk], 1, order)
         sup = (pairwise_iou(sb, sb) > thresh) & kept[:, :, None] & later[None]
         first = torch.where(sup.any(1), sup.int().argmax(1), n)  # (B, j) first suppressor
         need = kept[:, :, None] & sv[:, None, :] & later[None] & (idx[None, :, None] <= first[:, None, :])
@@ -386,10 +390,13 @@ GROUPED_SHAPES = (("fused", 256, 192, 30), ("stream 32", 32, 192, 1), ("stream",
 def nms_run(name, kernel, plain, args, iou_count, iters):
     """One NMS kernel at one shape: keep sets identical to the plain version,
     timed (``kernel_times``) beside its bound. ``args`` = boxes, scores,
-    valid (, groups)."""
+    valid (, groups); ``iou_count`` the IoUs the function needs, or a
+    function of the plain keep set that counts them."""
     keep = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
+    if callable(iou_count):  # counted from the plain keep set
+        iou_count = iou_count(ref)
     n_diff = int((keep != ref).sum())
     Bn, N = args[1].shape
     n_valid = int(args[2].sum())
@@ -464,26 +471,119 @@ def batched_case(dev, times):
                       steps=steps[0], steps_mean=steps[1])
 
 
+def frame_nms_problems(T, max_boxes, seed):
+    """Phase 7's protos of T frames x 30 classes as (T * 30, max_boxes)
+    problems: boxes, scores, valid, packed as ``video/frame_nms.py::
+    pack_frame_problems`` packs them for the card (the first ``max_boxes``
+    detections of a frame in file order, a problem a frame and class). Kept
+    here, from the protos alone, so that an earlier tree's kernels can be
+    timed on the same problems (scripts/kernel_ab.py)."""
+    from vdetlib_tpu_torch.protos.accessors import det_class_indices, frame_ids
+
+    vid, det = frame_nms_protos(T, max_boxes, seed)
+    fids, classes = frame_ids(vid), det_class_indices(det)
+    row, col = {f: i for i, f in enumerate(fids)}, {c: i for i, c in enumerate(classes)}
+    C, N = len(classes), max_boxes
+    boxes = np.zeros((T, C, N, 4), np.float32)
+    scores = np.zeros((T, C, N), np.float32)
+    valid = np.zeros((T, C, N), bool)
+    fill = np.zeros(T, np.int64)
+    for d in det["detections"]:
+        t = row[int(d["frame"])]
+        n = fill[t]
+        if n == N:
+            continue
+        fill[t] += 1
+        boxes[t, :, n] = np.asarray(d["bbox"], np.float32)
+        for sc in d["scores"]:
+            scores[t, col[int(sc["class_index"])], n] = float(sc["score"])
+            valid[t, col[int(sc["class_index"])], n] = True
+    return [boxes.reshape(T * C, N, 4), scores.reshape(T * C, N), valid.reshape(T * C, N)]
+
+
+def device_kernels(fn) -> list:
+    """Names of the device activities (kernels, copies, fills) of one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def sorted_bound(args, ious):
+    """Kernel D's bound on this data, both counts: (ms, by) for the bytes the
+    function must touch (valid and keep for every slot, box and score of each
+    valid slot) with AREA_OPS a valid slot + IOU_OPS a greedy IoU; and (ms,
+    by) with every slot's box and score read and an area for every slot,
+    the count that reads the invalid slots too."""
+    boxes, scores, valid = args
+    n_slots, n_valid = valid.numel(), int(valid.sum())
+    ops = IOU_OPS * ious
+    need = bound(2 * n_slots + (16 + 4) * n_valid, AREA_OPS * n_valid + ops)
+    every = bound(sum(a.numel() * a.element_size() for a in args) + n_slots,
+                  AREA_OPS * n_slots + ops)
+    return need, every
+
+
+# kernel D's timed shapes (label, problems, slots, source): phase 3's dense
+# problems at the frame-NMS tool's default budget, the tool's own (sparse)
+# problems from phase 7's protos at that budget, and a 2,048-slot budget
+SORTED_SHAPES = (("dense", NMS_FRAMES * 30, 512, "nms_problem"),
+                 ("tool", NMS_FRAMES * 30, 512, "frame_nms"),
+                 ("2048", NMS_FRAMES * 30, 2048, "nms_problem"))
+
+
 def sorted_case(dev, times):
-    """Kernel D at the frame-NMS tool's default budget, 64 frames x 30
-    classes x 512 slots: keep sets identical; the kernel's device time apart
-    from its torch sort and scatter."""
+    """Kernel D at SORTED_SHAPES (the 2,048-slot shape where the tree's D
+    takes it): keep sets identical to the plain version; device time of the
+    whole call (the kernel and any torch work around it, apart) and the
+    device activities of one call; the bound recounted on each shape's
+    valid slots. The record's own figures are the dense shape's, every
+    shape's under ``shapes``."""
     from vdetlib_tpu_torch.kernels import nms_sorted as kd
 
     th = NMS_THRESH
-    args = [torch.from_numpy(a).to(dev) for a in nms_problem(NMS_FRAMES * 30, 512, seed=3)]
-    t = nms_run("nms_sorted", lambda *a: kd.nms_sorted_kernel(*a, th),
-                lambda *a: kd.nms_sorted_greedy(*a, th), args, greedy_iou_count(*args, th),
-                iters=20)
-    plain_ms = cuda_ms(lambda: kd.nms_sorted_greedy(*args, th), iters=2, warmup=1)
-    log(f"kernel nms_sorted (1920, 512): keep identical ({t['kept']} of {t['valid']} valid "
-        f"kept); {fmt_times(t)}, its torch sort and scatter {t['other_device_ms']:.5f} ms "
-        f"device; bound {t['bound_ms']:.6f} ms ({t['ious']} IoUs)")
-    times.append(f"nms_sorted kernel {t['ms']:.4f} device {t['device_ms']:.5f} (+ sort and "
-                 f"scatter {t['other_device_ms']:.5f}) plain {plain_ms:.4f} bound "
-                 f"{t['bound_ms']:.6f}")
-    return nms_record("nms_sorted", "vdetlib_tpu/kernels/nms_pallas.py:354", t, plain_ms,
-                      sort_scatter_device_ms=t["other_device_ms"])
+    shapes, plain_ms, kernels_per_call = {}, None, None
+    for label, Bn, N, source in SORTED_SHAPES:
+        if N > kd.MAX_SLOTS:
+            log(f"kernel nms_sorted {label} ({Bn}, {N}): over this tree's limit of "
+                f"{kd.MAX_SLOTS} slots, not run")
+            continue
+        arrs = (nms_problem(Bn, N, seed=3) if source == "nms_problem"
+                else frame_nms_problems(Bn // 30, N, seed=N))
+        args = [torch.from_numpy(a).to(dev) for a in arrs]
+        t = nms_run("nms_sorted", lambda *a: kd.nms_sorted_kernel(*a, th),
+                    lambda *a: kd.nms_sorted_greedy(*a, th), args,
+                    lambda ref: greedy_iou_count(*args, th, ref), iters=20)
+        (t["bound_ms"], t["bound_by"]), (every_ms, every_by) = sorted_bound(args, t["ious"])
+        t["kernel_device_ms"] = t["device_ms"]
+        t["device_ms"] = t["kernel_device_ms"] + t["other_device_ms"]  # the whole call
+        names = device_kernels(lambda: kd.nms_sorted_kernel(*args, th))
+        n_valid = args[2].sum(1)
+        log(f"kernel nms_sorted {label} ({Bn}, {N}; valid a problem mean "
+            f"{float(n_valid.float().mean()):.1f}, max {int(n_valid.max())}, <= 32 in "
+            f"{int((n_valid <= 32).sum())}): keep identical ({t['kept']} of {t['valid']} valid "
+            f"kept); {fmt_times(t)} for the whole call (its kernel {t['kernel_device_ms']:.5f}, "
+            f"other device work {t['other_device_ms']:.5f}); {len(names)} device activities a "
+            f"call; bound {t['bound_ms']:.6f} ms by {t['bound_by']} ({t['ious']} IoUs; "
+            f"{every_ms:.6f} by {every_by} counting every slot's box and score)")
+        if plain_ms is None:
+            plain_ms = cuda_ms(lambda: kd.nms_sorted_greedy(*args, th), iters=2, warmup=1)
+            kernels_per_call = len(names)
+        shapes[label] = {k: t[k] for k in ("ms", "device_ms", "kernel_device_ms",
+                                           "other_device_ms", "host_us", "bound_ms", "bound_by",
+                                           "ious", "valid")}
+        shapes[label].update(bound_ms_every_slot=every_ms, device_kernels_per_call=len(names))
+        times.append(f"nms_sorted {label} device {t['device_ms']:.5f} (kernel "
+                     f"{t['kernel_device_ms']:.5f}) bound {t['bound_ms']:.6f}"
+                     + (f" plain {plain_ms:.4f}" if label == "dense" else ""))
+    return nms_record("nms_sorted", "vdetlib_tpu/kernels/nms_pallas.py:354",
+                      dict(shapes["dense"], n_diff=0), plain_ms, shapes=shapes,
+                      device_kernels_per_call=kernels_per_call)
 
 
 def phase_kernels(dev):
@@ -1154,8 +1254,11 @@ def phase_frame_nms(dev, kernels):
     from vdetlib_tpu_torch.video.frame_nms import frame_nms
 
     zero_counts(kernels)
-    for max_boxes, kernel in ((512, "nms_sorted"), (128, "nms_batched")):
+    for max_boxes, kernel in ((512, "nms_sorted"), (1024, "nms_sorted"), (128, "nms_batched")):
         vid, det = frame_nms_protos(NMS_FRAMES, max_boxes, seed=max_boxes)
+        if max_boxes > 512:  # past D's old limit: the frames must hold more than 512
+            per_frame = np.bincount([d["frame"] for d in det["detections"]])
+            assert per_frame.max() > 512, "no frame holds more than 512 detections"
         t0 = time.perf_counter()
         want = frame_nms(vid, det, thresh=0.3, backend="host")
         t1 = time.perf_counter()
@@ -1281,9 +1384,11 @@ def phase_staged(dev, kernels, profile_dir=None):
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
-    at the stream's for the stream's. A kernel is a candidate for a redesign
-    while it reaches less than half its bound (E also while its library call
-    is faster); the two candidates that lose most are named."""
+    at the stream's for the stream's, D at the frame-NMS tool's own problems
+    (phase 7 launches it at 512 and 1,024 slots). A kernel is a candidate
+    for a redesign while it reaches less than half its bound (E also while
+    its library call is faster); the two candidates that lose most are
+    named."""
     b = records["nms_grouped"]["shapes"]
     e = records["resize_normalize"]
     terms = {
@@ -1291,7 +1396,7 @@ def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged
                         (stream_counts["nms_grouped"], b["stream"])],
         "nms_batched": [(stream_counts["nms_batched"] + nms_counts["nms_batched"],
                          records["nms_batched"])],
-        "nms_sorted": [(nms_counts["nms_sorted"], records["nms_sorted"])],
+        "nms_sorted": [(nms_counts["nms_sorted"], records["nms_sorted"]["shapes"]["tool"])],
         "resize_normalize": [(staged_counts["resize_normalize"], e)],
     }
     losses = {}
@@ -1344,6 +1449,8 @@ def main(argv=None) -> int:
 
     records = phase_kernels(dev)
     torch.cuda.synchronize()
+    assert records["nms_sorted"]["device_kernels_per_call"] == 1, \
+        "kernel D's call ran more than its one kernel on the device"
     phase_reference(dev)
     torch.cuda.synchronize()
     kernels = {"flow_level": flow_level, "nms_grouped": nms_grouped_kernel,

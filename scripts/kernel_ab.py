@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time hand kernels of one tree of the port by device time, on the card.
 
-    python3 scripts/kernel_ab.py [--tree DIR] [--kernels nms_grouped nms_batched]
+    python3 scripts/kernel_ab.py [--tree DIR] [--kernels nms_sorted nms_grouped ...]
 
 Runs ``chip_smoke.py``'s phase-3 cases of the named kernels (each checked
 against its plain version, then timed: wall per call by CUDA events, device
-time by torch.profiler, host time per call) with the ``vdetlib_tpu_torch``
+time by torch.profiler, host time per call; kernel D by the device time of
+the whole call, its kernel and any torch work around it) with the ``vdetlib_tpu_torch``
 of ``--tree`` (default: this checkout) first on ``sys.path``; the timing code
 is always this checkout's ``chip_smoke.py``. For an A/B, unpack the other
 commit with ``git archive`` into a git-ignored directory and run the two
@@ -35,7 +36,7 @@ CASES = {"flow_level": "flow_case", "nms_grouped": "grouped_case", "nms_batched"
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(ROOT), help="root of the tree whose kernels run")
-    ap.add_argument("--kernels", nargs="+", default=["nms_grouped", "nms_batched"],
+    ap.add_argument("--kernels", nargs="+", default=["nms_sorted"],
                     choices=sorted(CASES))
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()

@@ -18,8 +18,15 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
 - kernel C (batched NMS), the stream's 960 problems (32 frames × 30 classes)
   of 64 slots, and a ragged 7-slot case: keep sets identical; and the same
   edge cases up to 128 slots, at 3 and 5 problems;
-- kernel D (sorted NMS), 1,920 problems (64 frames × 30 classes) of 512
-  slots, and a 300-slot case: keep sets identical;
+- kernel D (sorted NMS, one launch a call), 1,920 problems (64 frames × 30
+  classes) of 512 slots, and a 300-slot case: keep sets identical; and the
+  cases its one-launch design (compaction, a warp sort at <= 32 valid slots,
+  a bitonic sort above, a walk in chunks of 32) risks: N = 1, 31, 33, 511,
+  513, 1024, 2048 and its limit, nothing valid, every slot valid in one
+  cluster, a suppression chain of 95 links, an IoU exactly at the
+  threshold, thresholds 0 and -0.1, scores with ties, ±0.0, NaN and ±inf,
+  and the frame-NMS tool's sparse problems; ``batched_nms`` at 1,024 slots
+  launches D once; the profiler sees one device kernel a call;
 - kernel E (resize + normalize), 8 native 360×480 frames to 240×320 and
   240×320 frames to the pyramid's 176×240 and 304×400, and edge cases (1×1,
   7×13 ↔ 5×9, a batch at an odd byte offset, 1 and 13 frames, another mean
@@ -106,7 +113,8 @@ def _nms_edge_problem(case):
     """(boxes, scores, valid, groups, thresh) of one edge case, numpy."""
     rng = np.random.default_rng(sum(map(ord, case)))
     N, thresh = {"N1": 1, "N31": 31, "N33": 33, "N127": 127, "N128": 128, "N129": 129,
-                 "N512": 512}.get(case, 96), 0.3
+                 "N511": 511, "N512": 512, "N513": 513, "N1024": 1024, "N2048": 2048,
+                 "Nmax": kd.MAX_SLOTS}.get(case, 96), 0.3
     boxes, scores, valid, groups = nms_problem(3, N, seed=N, groups=5)
     if case == "one_group":
         groups[:] = 4
@@ -138,6 +146,14 @@ def _nms_edge_problem(case):
         valid = np.ones((3, 3), bool)
         groups = np.zeros((3, 3), np.int32)
         thresh = 0.5
+    elif case == "one_cluster":  # every slot valid, all around one box
+        boxes = (np.array([40, 30, 120, 90], np.float32)
+                 + rng.normal(0, 2, (3, N, 4))).astype(np.float32)
+        valid[:] = True
+    elif case == "special_scores":  # ties, ±0.0, NaN and ±inf among valid slots
+        pick = rng.integers(0, 6, (3, N))
+        scores = np.array([0.5, 0.0, -0.0, np.nan, np.inf, -np.inf], np.float32)[pick]
+        valid[:] = rng.uniform(size=(3, N)) > 0.1
     elif case == "thresh0":
         thresh = 0.0
     elif case == "thresh-0.1":
@@ -184,6 +200,81 @@ def test_batched_nms_kernel_edge_cases(cuda, case, B):
     torch.cuda.synchronize()
     assert kc.nms_batched_kernel.launches == before + 1
     assert torch.equal(got, kb.nms_unsorted_fixpoint(*arrs, thresh))
+
+
+SORTED_EDGES = ["N1", "N31", "N33", "N511", "N513", "N1024", "N2048", "Nmax", "all_invalid",
+                "one_cluster", "chain", "at_thresh", "thresh0", "thresh-0.1", "special_scores"]
+
+
+@pytest.mark.parametrize("case", SORTED_EDGES)
+def test_sorted_nms_kernel_edge_cases(cuda, case):
+    """Kernel D's keep sets equal the plain version's: sizes around a warp,
+    around the old 512-slot limit and up to the limit, nothing valid, one
+    cluster, a chain across chunks, an IoU exactly at the threshold,
+    thresholds 0 and below, and the visit key's traps (ties, ±0.0, NaN,
+    ±inf)."""
+    boxes, scores, valid, _, thresh = _nms_edge_problem(case)
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (boxes, scores, valid)]
+    before = kd.nms_sorted_kernel.launches
+    got = kd.nms_sorted_kernel(*arrs, thresh)
+    torch.cuda.synchronize()
+    assert kd.nms_sorted_kernel.launches == before + 1
+    assert torch.equal(got, kd.nms_sorted_greedy(*arrs, thresh))
+    if case == "at_thresh":
+        assert got.tolist() == [[True, True, False]] * 3
+    if case == "chain":
+        assert int(got.sum()) == 3 * 48
+    if case == "one_cluster":
+        assert 3 <= int(got.sum()) < 3 * 32
+
+
+def test_sorted_nms_kernel_on_the_frame_nms_tools_problems(cuda):
+    """The frame-NMS tool's own problems (8 frames × 30 classes of 512 slots,
+    ~17 valid a problem): the warp path and the block path both run."""
+    from chip_smoke import frame_nms_protos
+    from vdetlib_tpu_torch.video.frame_nms import pack_frame_problems
+
+    boxes, scores, valid, _, _ = pack_frame_problems(*frame_nms_protos(8, 512, seed=512), 512)
+    T, C, N = scores.shape
+    b = torch.from_numpy(np.repeat(boxes[:, None], C, 1).reshape(T * C, N, 4)).to(cuda)
+    s = torch.from_numpy(scores.reshape(T * C, N)).to(cuda)
+    v = torch.from_numpy(valid.reshape(T * C, N)).to(cuda)
+    n_valid = v.sum(1)
+    assert int(n_valid.max()) > 32 and 0 < int((n_valid <= 32).sum()) < T * C
+    got = kd.nms_sorted_kernel(b, s, v, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kd.nms_sorted_greedy(b, s, v, 0.3))
+    assert 0 < int(got.sum()) < int(v.sum())
+
+
+def test_sorted_nms_kernel_is_one_launch_a_call(cuda):
+    """No torch sort, gather or scatter around D: the profiler sees one
+    device kernel a call, D's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in nms_problem(64, 512, seed=5))
+    kd.nms_sorted_kernel(boxes, scores, valid, 0.3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kd.nms_sorted_kernel(boxes, scores, valid, 0.3)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "nms_sorted_kernel" in names[0], names
+
+
+def test_batched_nms_routes_1024_slots_to_the_sorted_kernel(cuda):
+    """Above B's 512 slots ``batched_nms`` launches D once (it raised before)."""
+    from vdetlib_tpu_torch.kernels.nms import batched_nms
+
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in nms_problem(6, 1024, seed=4))
+    before_b, before_d = kb.nms_grouped_kernel.launches, kd.nms_sorted_kernel.launches
+    got = batched_nms(boxes, scores, valid, 0.3)
+    torch.cuda.synchronize()
+    assert kd.nms_sorted_kernel.launches == before_d + 1
+    assert kb.nms_grouped_kernel.launches == before_b
+    assert torch.equal(got, kb.nms_unsorted_fixpoint(boxes, scores, valid, 0.3))
+    assert 0 < int(got.sum()) < int(valid.sum())
 
 
 def test_batched_nms_routes_192_slots_to_the_grouped_kernel(cuda):
@@ -265,8 +356,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     s = torch.zeros((1, 600), device=cuda)
     with pytest.raises(ValueError):
         kb.nms_grouped_kernel(b, s, s.bool(), s.int(), 0.5)  # N > 512
-    with pytest.raises(ValueError):
-        kd.nms_sorted_kernel(b, s, s.bool(), 0.5)  # N > 512
+    n = kd.MAX_SLOTS + 1  # D's limit, from its shared memory (8192)
+    with pytest.raises(ValueError, match=f"N <= {kd.MAX_SLOTS}"):
+        kd.nms_sorted_kernel(torch.zeros((1, n, 4), device=cuda), torch.zeros((1, n), device=cuda),
+                             torch.zeros((1, n), dtype=torch.bool, device=cuda), 0.5)
     with pytest.raises(ValueError):
         kc.nms_batched_kernel(b[:, :129], s[:, :129], s[:, :129].bool(), 0.5)  # N > 128
     with pytest.raises(TypeError):

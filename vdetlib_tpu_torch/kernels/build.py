@@ -51,9 +51,9 @@ KERNELS = {
         ("vdet_nms_batched", (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
         ("-fmad=false",),
     ),
-    # nms_sorted(sorted_boxes, sorted_valid, sorted_keep, B, N, thresh, offset, stream)
+    # nms_sorted(boxes, scores, valid, keep, B, N, threads, thresh, offset, stream)
     "nms_sorted": (
-        ("vdet_nms_sorted", (_P, _P, _P, _I, _I, _F, _F, _P)),
+        ("vdet_nms_sorted", (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
         ("-fmad=false",),
     ),
     # resize_normalize(frames, ylo, yhi, wylo, wyhi, xlo, xhi, wxlo, wxhi, out,

@@ -17,6 +17,7 @@ from vdetlib_tpu_torch.kernels.nms_batched import MAX_SLOTS as BATCHED_MAX
 from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
 from vdetlib_tpu_torch.kernels.nms_grouped import MAX_SLOTS as GROUPED_MAX
 from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel, nms_unsorted_fixpoint
+from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
 
 __all__ = ["batched_nms", "nms_grouped", "nms_host", "nms_unsorted_fixpoint"]
 
@@ -26,10 +27,11 @@ def batched_nms(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFS
 
     boxes (..., N, 4), scores/valid (..., N) → keep (..., N) bool. CPU tensors
     take the plain sort-free fixpoint. On a card, N <= 128 launches kernel C
-    (as the JAX package runs its Pallas ``nms_pallas_fixpoint`` there), and
-    128 < N <= 512 launches kernel B with one group for every slot — the same
-    exact function, where the JAX package runs the XLA fixpoint (the stream's
-    MGP dedup at N = 3R = 192). Larger N raises.
+    (as the JAX package runs its Pallas ``nms_pallas_fixpoint`` there),
+    128 < N <= 512 launches kernel B with one group for every slot (the
+    stream's MGP dedup at N = 3R = 192), and larger N launch kernel D, up to
+    its ``MAX_SLOTS`` (8192; above, D's wrapper raises). Each computes the
+    same exact keep set as the XLA fixpoint the JAX package runs above 128.
     """
     n = scores.shape[-1]
     lead = scores.shape[:-1]
@@ -44,7 +46,7 @@ def batched_nms(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFS
         g = torch.zeros(s.shape, dtype=torch.int32, device=s.device)
         keep = nms_grouped_kernel(b, s, v, g, thresh, offset)
     else:
-        raise ValueError(f"batched_nms on a card takes N <= {GROUPED_MAX}, got {n}")
+        keep = nms_sorted_kernel(b, s, v, thresh, offset)
     return keep.reshape(lead + (n,))
 
 

@@ -121,9 +121,15 @@ def check_nms_inputs(name: str, max_slots: int, boxes, scores, valid, groups=Non
         raise TypeError(f"{name} kernel takes (f32, f32, bool[, int32]), got {dtypes}")
     if not all(t.is_contiguous() for t in tensors) or boxes.data_ptr() % 16:
         raise ValueError(f"{name} kernel takes contiguous inputs, boxes 16-byte aligned")
+    check_slots(name, max_slots, B, N)
+    return B, N
+
+
+def check_slots(name: str, max_slots: int, B: int, N: int) -> None:
+    """The NMS kernels' size limit, run by :func:`check_nms_inputs`: raises
+    unless B >= 1 and 1 <= N <= ``max_slots``."""
     if not 1 <= N <= max_slots or B < 1:
         raise ValueError(f"{name} kernel takes B >= 1 and 1 <= N <= {max_slots}, got ({B}, {N})")
-    return B, N
 
 
 def nms_grouped_kernel(boxes, scores, valid, groups, thresh: float,

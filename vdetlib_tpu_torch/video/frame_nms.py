@@ -9,7 +9,8 @@ identical keep sets:
 - ``host``: numpy greedy NMS per (frame, class), no device involved;
 - ``pallas``: pad to (T·C, N) and run the hand kernels that replace the
   Pallas ones on ``device``, routed as the JAX ``batched_nms_pallas`` routes:
-  N <= 128 → kernel C, N > 128 → kernel D;
+  N <= 128 → kernel C, N > 128 → kernel D (up to its 8,192 slots on a card;
+  the JAX package takes any N);
 - ``xla``: the same route as ``pallas`` (the JAX package's XLA fixpoint
   computes the same keep sets; the port has one device route);
 - ``fixpoint`` (the JAX sorted Jacobi form, ``nms_fixpoint``): not ported
@@ -85,7 +86,11 @@ def _frame_nms_host(vid_proto, det_proto, thresh, offset) -> dict:
     return _filter_det_proto(det_proto, kept_pairs)
 
 
-def _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes, device) -> dict:
+def pack_frame_problems(vid_proto: dict, det_proto: dict, max_boxes: int):
+    """The device backends' problems: the first ``max_boxes`` detections of
+    each frame, in file order, as (boxes (T, N, 4) f32, scores (T, C, N) f32,
+    has_entry (T, C, N) bool, det_index (T, N) int64 with -1 on empty slots,
+    classes), N = ``max_boxes`` and C the det_proto's classes."""
     by_frame = _collect(det_proto)
     classes = det_class_indices(det_proto)
     fids = frame_ids(vid_proto)
@@ -104,6 +109,13 @@ def _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes, device) -
                 if c is not None:
                     scores[t, c, n] = float(s["score"])
                     has_entry[t, c, n] = True
+    return boxes, scores, has_entry, det_index, classes
+
+
+def _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes, device) -> dict:
+    boxes, scores, has_entry, det_index, classes = pack_frame_problems(vid_proto, det_proto,
+                                                                       max_boxes)
+    T, C, N = scores.shape
     b = torch.from_numpy(boxes).to(device)[:, None].expand(T, C, N, 4)
     s = torch.from_numpy(scores).to(device)
     v = torch.from_numpy(has_entry).to(device)
