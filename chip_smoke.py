@@ -42,7 +42,8 @@ Phases, each synchronised and each fatal on failure:
    on the card) and the tiny float32 stream on the card equal the same runs
    on the CPU (plain kernel versions) within the port's cross-framework
    bounds (bool fields exact, path ids < 1% of slots, boxes 0.5 px, scores
-   0.01; stream track segments on the same frames);
+   0.01; stream track segments on the same frames); the tiny stream also
+   through the host engine at ``track_stride`` 2;
 5. fused slice: the ``base`` detector (C=31) and the default tracker with
    seeded random weights run ``pad_snippet`` → ``make_fused_pipeline`` →
    ``fused_to_protos`` at 240×320 over three synthetic videos; kernels A, B
@@ -54,6 +55,8 @@ Phases, each synchronised and each fatal on failure:
 7. frame NMS: ``frame_nms(backend="pallas")`` over synthetic protos of 64
    frames × 30 classes equals the ``host`` backend at 512 and 1,024 boxes
    (kernel D; frames of more than 512 detections) and at 128 (kernel C);
+   so does ``backend="fixpoint"`` (the Jacobi form, no hand kernel) at 512
+   and 128, with its wall and peak device memory;
 8. staged detect → track: the same models through the stages' entry
    points at the detect and track tools' defaults, frames in memory:
    ``det_vid`` with ``device_resize`` over 96 native 360×480 frames with 128
@@ -61,7 +64,22 @@ Phases, each synchronised and each fatal on failure:
    with the pyramid (0.75, 1.0, 1.25) over 96 frames at 240×320 (E for 0.75
    and 1.25), and ``track_from_det`` over the first det_proto (32 tracks, 8
    anchors a round, stride 2; kernel F once per round); kernels E and F
-   must launch.
+   must launch;
+9. stream engines: phase 6's videos and calibrated options through the
+   host engine (``engine="host"``: the stages one call at a time, the
+   seeding on the host) at ``track_stride`` 1, equal to phase 6's fused
+   results, and both engines at ``track_stride`` 2, equal to each other —
+   bit for bit, as the JAX engine-parity tests require; then both at
+   strides 1 and 2 on the 100-frame video with ``conf_thresh`` raised so
+   that tracks die and slots are seeded again in later chunks. Asserted
+   first: tracks across chunk boundaries, backtracked entries, boundary
+   fills at a chunk's last frame (stride 2), detection boxes independent
+   of the stride, and (raised threshold) seeds in two chunks or more.
+   Kernels A, B and C must launch in the host engine (counted apart from
+   phases 5–8). Where the engines differ, the first chunk and stage that
+   differ are printed and the phase fails. Prints ms per full chunk and
+   frames/s for each engine and stride, and the ``stream.track_features``
+   and ``stream.track_chunk`` spans at both strides (profiler, fused step).
 
 Around each of phases 5–8 the kernels' launch counters are zeroed just
 before and read just after; a kernel's ``launches`` in the record is the
@@ -76,6 +94,7 @@ card's name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -908,13 +927,14 @@ def compare_outputs(got, want):
     return worst
 
 
-def tiny_stream(dev, frames, rois):
-    """The tiny float32 stream (chunk 8, 16 proposals, 6 slots) on ``dev``."""
+def tiny_stream(dev, frames, rois, **kw):
+    """The tiny float32 stream (chunk 8, 16 proposals, 6 slots) on ``dev``;
+    ``kw`` sets other ``StreamOptions`` (the engine, the track stride)."""
     from vdetlib_tpu_torch.video.stream import StreamOptions, stream_video
 
     det, trk, trk_cfg = tiny_models(dev)
     opts = StreamOptions(chunk=8, max_rois=16, num_classes=4, track_slots=6, seed_thresh=0.26,
-                         max_paths=20)
+                         max_paths=20, **kw)
     chunks = (frames[s:s + 8] for s in range(0, len(frames), 8))
     return stream_video(det, trk, trk_cfg, chunks, rois, opts)
 
@@ -969,6 +989,18 @@ def phase_reference(dev):
     assert len(want["tracks"]) >= 1 and (want["path_ids"] >= 0).any()
     log(f"reference: tiny f32 stream on {dev} == CPU within bounds (worst float diff "
         f"{worst:.6f}, {len(want['tracks'])} tracks, {int(want['keep'].sum())} kept)")
+
+    # the host engine at track_stride 2 over the same 12 frames: a full
+    # chunk of 8, then a partial chunk of 4 that computes the boundary fill
+    # of frame 7 (which emits nothing here: no slot is alive before the first
+    # chunk's seeds, and phase 9 checks emitted fills at the tool's defaults)
+    kw = dict(engine="host", track_stride=2)
+    want = tiny_stream("cpu", frames, rois, **kw)
+    got = tiny_stream(dev, frames, rois, **kw)
+    worst = compare_streams(got, want)
+    assert len(want["tracks"]) >= 1 and (want["path_ids"] >= 0).any()
+    log(f"reference: tiny f32 stream, host engine at track_stride 2, on {dev} == CPU within "
+        f"bounds (worst float diff {worst:.6f}, {len(want['tracks'])} tracks)")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1157,8 +1189,46 @@ def calibrated_seed_thresh(det, dev, videos, seed_thresh, chunk):
     return thresh
 
 
+def stream_runs(models, videos, opts):
+    """``stream_video`` at ``opts`` over each of ``videos`` ((frames, rois,
+    frame ids)), timed: a list of (result, wall s, ms of each chunk, ms after
+    the last chunk: seq-NMS)."""
+    from vdetlib_tpu_torch.video.stream import stream_video
+
+    det, trk, trk_cfg = models
+
+    def chunks(frames, marks):
+        for s in range(0, len(frames), opts.chunk):
+            marks.append(time.perf_counter())
+            yield frames[s:s + opts.chunk]
+        marks.append(time.perf_counter())  # the last chunk is done
+
+    runs = []
+    for frames, rois, _ in videos:
+        marks = []
+        t0 = time.perf_counter()
+        res = stream_video(det, trk, trk_cfg, chunks(frames, marks), rois, opts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs.append((res, dt, np.diff(marks) * 1e3, (t0 + dt - marks[-1]) * 1e3))
+    return runs
+
+
+def stream_rates(runs, videos, chunk):
+    """(frames/s, frames/s after the first video's first chunk, median ms
+    of a full chunk after each video's first)."""
+    n_frames = sum(len(v[0]) for v in videos)
+    wall = sum(r[1] for r in runs)
+    first_chunk = runs[0][2][0] / 1e3
+    full = [x for (_, _, per_chunk, _), v in zip(runs, videos)
+            for x in per_chunk[1:len(v[0]) // chunk]]
+    return n_frames / wall, (n_frames - chunk) / (wall - first_chunk), float(np.median(full))
+
+
 def phase_stream(dev, kernels, models, opts, profile_dir=None):
-    """The stream engine at ``opts`` over two synthetic videos."""
+    """The stream engine at ``opts`` over two synthetic videos. Returns the
+    launches, rates and peak memory, and the phase's videos, calibrated
+    options and runs for phase 9."""
     from vdetlib_tpu_torch.video.stream import stream_to_protos, stream_video
 
     det, trk, trk_cfg = models
@@ -1170,28 +1240,11 @@ def phase_stream(dev, kernels, models, opts, profile_dir=None):
                                     opts.chunk)
     opts = dataclasses.replace(opts, seed_thresh=thresh)
 
-    def chunks(frames, marks):
-        for s in range(0, len(frames), opts.chunk):
-            marks.append(time.perf_counter())
-            yield frames[s:s + opts.chunk]
-        marks.append(time.perf_counter())  # the last chunk is done
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
-    walls, chunk_ms, n_frames, first_chunk = [], [], 0, None
-    for i, (frames, rois, fids) in enumerate(videos):
-        marks = []
-        t0 = time.perf_counter()
-        res = stream_video(det, trk, trk_cfg, chunks(frames, marks), rois, opts)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        walls.append(dt)
-        n_frames += len(frames)
-        per_chunk = np.diff(marks) * 1e3
-        if first_chunk is None:
-            first_chunk = per_chunk[0] / 1e3
-        chunk_ms.extend(per_chunk[1:len(frames) // opts.chunk])  # full chunks after the first
+    runs = stream_runs(models, videos, opts)
+    for i, ((frames, _, fids), (res, dt, per_chunk, tail_ms)) in enumerate(zip(videos, runs)):
         det_proto, tubelets, track_proto = stream_to_protos(res, fids, f"stream{i:03d}")
         for k in ("boxes", "scores", "seq_scores"):
             assert np.isfinite(res[k]).all(), f"non-finite stream {k}"
@@ -1204,23 +1257,251 @@ def phase_stream(dev, kernels, models, opts, profile_dir=None):
             and len(track_proto["tracks"]) > 0, "empty stream protos"
         log(f"stream video {i}: T={len(frames)} in {len(per_chunk)} chunks, {dt * 1e3:.1f} ms "
             f"(chunks {[round(float(x), 1) for x in per_chunk]} ms; seq-NMS and protos "
-            f"{(t0 + dt - marks[-1]) * 1e3:.1f} ms), {len(res['tracks'])} tracks, "
+            f"{tail_ms:.1f} ms), {len(res['tracks'])} tracks, "
             f"{int(res['keep'].sum())} kept, proto dets {len(det_proto['detections'])}, "
             f"tubelets {len(tubelets['tracks'])}, online tracks {len(track_proto['tracks'])}")
     launches = read_counts(kernels, "stream", ("flow_level", "nms_grouped", "nms_batched"))
     peak = torch.cuda.max_memory_allocated()
-    fps = n_frames / sum(walls)
-    steady = (n_frames - opts.chunk) / (sum(walls) - first_chunk)
-    med = float(np.median(chunk_ms))
-    log(f"stream: {n_frames} frames in {sum(walls):.3f} s = {fps:.2f} frames/s (after the "
-        f"first chunk: {steady:.2f} frames/s); full chunk of {opts.chunk} frames: median "
-        f"{med:.1f} ms ({opts.chunk / med * 1e3:.2f} frames/s); peak device memory "
+    n_frames = sum(len(v[0]) for v in videos)
+    fps, steady, med = stream_rates(runs, videos, opts.chunk)
+    log(f"stream: {n_frames} frames in {sum(r[1] for r in runs):.3f} s = {fps:.2f} frames/s "
+        f"(after the first chunk: {steady:.2f} frames/s); full chunk of {opts.chunk} frames: "
+        f"median {med:.1f} ms ({opts.chunk / med * 1e3:.2f} frames/s); peak device memory "
         f"{peak / 2**20:.1f} MiB")
     if profile_dir:
         frames, rois, _ = videos[-1]
-        profile_one(lambda: stream_video(det, trk, trk_cfg, chunks(frames, []), rois, opts),
+        profile_one(lambda: stream_video(det, trk, trk_cfg,
+                                         (frames[s:s + opts.chunk]
+                                          for s in range(0, len(frames), opts.chunk)),
+                                         rois, opts),
                     profile_dir, "profile_stream.txt", "stream.")
-    return launches, fps, steady, med, peak
+    return launches, fps, steady, med, peak, dict(videos=videos, opts=opts, runs=runs)
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def stream_difference(a, b):
+    """None where two stream results are equal as the JAX engine-parity
+    tests require (keep, boxes, scores, path ids and seq-scores array-equal;
+    every segment's frames, boxes and scores equal), else what differs."""
+    if a["num_frames"] != b["num_frames"]:
+        return "num_frames"
+    for k in ("keep", "boxes", "scores", "path_ids", "seq_scores"):
+        if not np.array_equal(a[k], b[k]):
+            return k
+    if set(a["tracks"]) != set(b["tracks"]):
+        return "track ids"
+    for tid, sa in a["tracks"].items():
+        sb = b["tracks"][tid]
+        if [e[0] for e in sa] != [e[0] for e in sb]:
+            return f"track {tid} frames"
+        if not np.array_equal(np.stack([e[1] for e in sa]), np.stack([e[1] for e in sb])):
+            return f"track {tid} boxes"
+        if [e[2] for e in sa] != [e[2] for e in sb]:
+            return f"track {tid} scores"
+    return None
+
+
+@contextlib.contextmanager
+def seed_spy(seeds):
+    """Appends (t_global // chunk, global seed frame) of every seed the
+    engines hand to their shared bookkeeping to ``seeds``."""
+    from vdetlib_tpu_torch.video import stream as st
+
+    add = st._TrackBook.add_chunk
+
+    def spy(self, out, chunk_seeds, Tc, t_global):
+        seeds.extend((t_global // self.opts.chunk, t_global + ti) for _, ti, _, _ in chunk_seeds)
+        return add(self, out, chunk_seeds, Tc, t_global)
+
+    st._TrackBook.add_chunk = spy
+    try:
+        yield seeds
+    finally:
+        st._TrackBook.add_chunk = add
+
+
+def locate_divergence(models, video, opts):
+    """Both engines over ``video`` again, each chunk's stage outputs recorded
+    (detection + MGP, slot advance, seeds, backtrack), in the manner of
+    scripts/torch_stream_divergence.py: the first chunk and stage where the
+    engines differ, with the largest difference there."""
+    from vdetlib_tpu_torch.video import stream as st
+
+    saved = st._detect_stage, st._track_stage, st._TrackBook.add_chunk
+    recs = {}
+
+    def recorders(chunks):
+        def detect(*a):
+            out = saved[0](*a)
+            chunks.append({"detect + MGP": [x.cpu().numpy() for x in out[:3]]})
+            return out
+
+        def track(*a):
+            out = saved[1](*a)
+            chunks[-1]["slot advance"] = [x.cpu().numpy() for x in out[1:4] + out[8:]]
+            return out
+
+        def add(self, out, seeds, Tc, t_global):
+            chunks[-1]["seeds"] = [np.array([a, ti, *box, sc], np.float64)
+                                   for a, ti, box, sc in seeds]
+            chunks[-1]["backtrack"] = [np.concatenate([out["bb"][a].ravel(),
+                                                       out["balive"][a] > 0.5])
+                                       for a, _, _, _ in seeds] if opts.backtrack else []
+            return saved[2](self, out, seeds, Tc, t_global)
+        return detect, track, add
+
+    frames, rois, _ = video
+    try:
+        for engine in ("fused", "host"):
+            st._detect_stage, st._track_stage, st._TrackBook.add_chunk = recorders(
+                recs.setdefault(engine, []))
+            st.stream_video(*models, (frames[s:s + opts.chunk]
+                                      for s in range(0, len(frames), opts.chunk)),
+                            rois, dataclasses.replace(opts, engine=engine))
+    finally:
+        st._detect_stage, st._track_stage, st._TrackBook.add_chunk = saved
+    for k, (f, h) in enumerate(zip(recs["fused"], recs["host"])):
+        for stage in f:
+            a, b = f[stage], h[stage]
+            if len(a) != len(b):
+                return f"chunk {k}, stage {stage}: {len(a)} against {len(b)} entries"
+            for x, y in zip(a, b):
+                x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+                if x.shape != y.shape or not np.array_equal(x, y):
+                    err = np.abs(x - y).max() if x.shape == y.shape else "shape"
+                    return f"chunk {k}, stage {stage}: max |diff| {err}"
+    return "no stage of any chunk differs (the bookkeeping or seq-NMS does)"
+
+
+def stream_spans(models, video, opts):
+    """The fused step over the full chunks of ``video`` under torch.profiler
+    (after one untraced pass): {span: (host ms, device ms)} of the stream's
+    spans over those chunks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vdetlib_tpu_torch.video.stream import init_carry, make_stream_chunk_fn
+
+    det, trk, trk_cfg = models
+    dev = next(det.parameters()).device
+    step, _ = make_stream_chunk_fn(det, trk, trk_cfg, opts)
+    frames, rois, _ = video
+
+    def run():
+        carry, halo = init_carry(opts, trk_cfg, dev), None
+        for s in range(0, len(frames) - opts.chunk + 1, opts.chunk):
+            f = torch.from_numpy(np.ascontiguousarray(frames[s:s + opts.chunk])).to(dev)
+            halo = f[0] if halo is None else halo
+            carry, halo, packed = step(f, torch.from_numpy(rois[s:s + opts.chunk]).to(dev),
+                                       opts.chunk, halo, carry)
+            packed.cpu()
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # the host-side span events (the profiler also lists each span on the
+    # device's timeline under the same name, with no host time)
+    return {e.key: (e.cpu_time_total / 1e3, e.device_time_total / 1e3)
+            for e in prof.key_averages() if e.key.startswith("stream.") and e.cpu_time_total > 0}
+
+
+def phase_stream_engines(kernels, models, ctx):
+    """Phase 9: the host engine and track_stride 2 on phase 6's videos and
+    calibrated options. (a) host at stride 1 == phase 6's fused results; (b)
+    fused == host at stride 2; (c) both again at strides 1 and 2 on the
+    100-frame video with conf_thresh raised to the median of its track
+    confidences in phase 6, so that tracks die and slots are seeded again in
+    later chunks. Returns the host engine's kernel launches of (a)
+    and (b), counted apart from phases 5-8."""
+    videos, opts = ctx["videos"], ctx["opts"]
+    runs = {("fused", 1): ctx["runs"]}
+    seeds = {}
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    for engine, stride in (("host", 1), ("host", 2)):
+        with seed_spy(seeds.setdefault((engine, stride), [])):
+            runs[(engine, stride)] = stream_runs(
+                models, videos, dataclasses.replace(opts, engine=engine, track_stride=stride))
+    launches = read_counts(kernels, "stream host engine (phase 9)",
+                           ("flow_level", "nms_grouped", "nms_batched"))
+    runs[("fused", 2)] = stream_runs(models, videos, dataclasses.replace(opts, track_stride=2))
+    for (engine, stride), r in runs.items():
+        fps, steady, med = stream_rates(r, videos, opts.chunk)
+        log(f"stream {engine} engine, track_stride {stride}: {fps:.2f} frames/s (after the first "
+            f"chunk {steady:.2f}); full chunk of {opts.chunk} frames: median {med:.1f} ms "
+            f"({opts.chunk / med * 1e3:.2f} frames/s); seq-NMS and protos "
+            f"{[round(float(x[3]), 1) for x in r]} ms")
+    for stride in (1, 2):
+        log(f"stream seeds, host engine, track_stride {stride}, both videos: (chunk, frame) "
+            f"{seeds[('host', stride)]}")
+
+    def same(vids, rs_f, rs_h, opts_x):
+        for i, ((f, *_), (h, *_), video) in enumerate(zip(rs_f, rs_h, vids)):
+            diff = stream_difference(f, h)
+            if diff is not None:
+                where = locate_divergence(models, video, opts_x)
+                raise AssertionError(f"stream engines differ at track_stride "
+                                     f"{opts_x.track_stride} on video {i} ({diff}); first "
+                                     f"difference: {where}")
+
+    same(videos, runs[("fused", 1)], runs[("host", 1)], opts)
+    same(videos, runs[("fused", 2)], runs[("host", 2)], dataclasses.replace(opts, track_stride=2))
+
+    # preconditions: the cases the comparison must cover
+    C_ = opts.chunk
+    for stride in (1, 2):
+        for (res, *_), (frames, _, _) in zip(runs[("host", stride)], videos):
+            segs = list(res["tracks"].values())
+            assert any(min(e[0] for e in s) // C_ != max(e[0] for e in s) // C_ for s in segs), \
+                f"no track crosses a chunk boundary at track_stride {stride}"
+            assert any(e[2] == 0.0 for s in segs for e in s), \
+                f"no backtracked entries at track_stride {stride}"
+    seed_frames = {t for _, t in seeds[("host", 2)]}
+    for (res, *_), (frames, _, _) in zip(runs[("host", 2)], videos):
+        fills = [e[0] for s in res["tracks"].values() for e in s
+                 if e[0] % C_ == C_ - 1 and e[0] < len(frames) - 1 and e[2] != 0.0
+                 and e[0] not in seed_frames]
+        assert fills, "no boundary-fill entries at a chunk's last frame at track_stride 2"
+    for (r1, *_), (r2, *_), (rf, *_) in zip(runs[("fused", 1)], runs[("host", 2)],
+                                             runs[("fused", 2)]):
+        assert np.array_equal(r1["boxes"], r2["boxes"]) and np.array_equal(r1["boxes"],
+                                                                          rf["boxes"]), \
+            "detection boxes depend on the track stride"
+    log(f"stream engines: host == fused bit for bit at track_stride 1 (against phase 6) and 2, "
+        f"{len(videos)} videos; boundary fills, backtracked entries and tracks across chunks "
+        f"present; detection boxes equal at both strides")
+
+    # (c) tracks that die: the slots are seeded again in later chunks
+    # a track of phase 6 whose confidence falls below this threshold dies
+    # here, in a chunk after its first, and frees its slot for a seed there
+    confs = [e[2] for s in ctx["runs"][-1][0]["tracks"].values() for e in s if e[2] != 0.0]
+    opts_c = dataclasses.replace(opts, conf_thresh=float(np.median(confs)))
+    for stride in (1, 2):
+        opts_s = dataclasses.replace(opts_c, track_stride=stride)
+        rc = {"fused": stream_runs(models, videos[-1:], opts_s)}
+        with seed_spy([]) as sc:
+            rc["host"] = stream_runs(models, videos[-1:],
+                                     dataclasses.replace(opts_s, engine="host"))
+        same(videos[-1:], rc["fused"], rc["host"], opts_s)
+        chunks_seeded = sorted({k for k, _ in sc})
+        assert len(chunks_seeded) >= 2, f"seeds in chunks {chunks_seeded} only"
+        log(f"stream engines with conf_thresh {opts_c.conf_thresh:.6f} (the median of the "
+            f"video's track confidences in phase 6), track_stride {stride}: host == fused bit "
+            f"for bit; "
+            f"{len(sc)} seeds in chunks {chunks_seeded}, "
+            f"{len(rc['host'][0][0]['tracks'])} tracks")
+
+    spans = {s: stream_spans(models, videos[0], dataclasses.replace(opts, track_stride=s))
+             for s in (1, 2)}
+    for name in ("stream.track_features", "stream.track_chunk"):
+        log(f"span {name} over the {len(videos[0][0]) // C_} full chunks of stream video 0 "
+            f"(fused engine; host / device ms): track_stride 1 "
+            f"{spans[1][name][0]:.3f} / {spans[1][name][1]:.3f}, track_stride 2 "
+            f"{spans[2][name][0]:.3f} / {spans[2][name][1]:.3f}")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1271,6 +1552,16 @@ def phase_frame_nms(dev, kernels):
             f"({len(det['detections'])} in, {len(want['detections'])} out): pallas "
             f"({kernel}) == host; host {(t1 - t0) * 1e3:.1f} ms, pallas {(t2 - t1) * 1e3:.1f} ms "
             f"wall")
+        if max_boxes in (128, 512):  # the Jacobi form launches no hand kernel
+            torch.cuda.reset_peak_memory_stats()
+            t3 = time.perf_counter()
+            fixed = frame_nms(vid, det, thresh=0.3, backend="fixpoint", max_boxes=max_boxes,
+                              device=dev)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            assert fixed == want, f"frame_nms fixpoint at max_boxes {max_boxes} differs from host"
+            log(f"frame_nms fixpoint == host at {max_boxes} boxes: {(t4 - t3) * 1e3:.1f} ms wall, "
+                f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return read_counts(kernels, "frame NMS", ("nms_sorted", "nms_batched"))
 
 
@@ -1461,14 +1752,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"slice throughput on {card}: {fps:.2f} frames/s overall, {steady:.2f} frames/s "
         f"steady; peak memory {peak / 2**20:.1f} MiB")
-    stream_counts, sfps, ssteady, chunk_ms, speak = phase_stream(
-        dev, kernels, base_models(dev), StreamOptions(), args.profile)
+    stream_models = base_models(dev)
+    stream_counts, sfps, ssteady, chunk_ms, speak, stream_ctx = phase_stream(
+        dev, kernels, stream_models, StreamOptions(), args.profile)
     torch.cuda.synchronize()
     log(f"stream throughput on {card}: {sfps:.2f} frames/s overall, {ssteady:.2f} after the "
         f"first chunk, {chunk_ms:.1f} ms per full chunk; peak memory {speak / 2**20:.1f} MiB")
     nms_counts = phase_frame_nms(dev, kernels)
     torch.cuda.synchronize()
     staged_counts = phase_staged(dev, kernels, args.profile)
+    torch.cuda.synchronize()
+    phase_stream_engines(kernels, stream_models, stream_ctx)
     torch.cuda.synchronize()
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,

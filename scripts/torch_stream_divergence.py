@@ -34,7 +34,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 import vdetlib_tpu_torch.video.stream as st  # noqa: E402
-import vdetlib_tpu_torch.video.track as tr  # noqa: E402
+import vdetlib_tpu_torch.kernels.track_scan as tr  # noqa: E402  (the search-window pooling)
 
 
 def run(dev, frames, rois, noise=0.0, draw=0, f32_pool=False):

@@ -1,0 +1,183 @@
+"""Shared fixtures and comparisons of the stream parity tests
+(tests/test_torch_stream.py, tests/test_torch_stream_stride.py).
+
+The tiny preset (96×128, R=16, C=4, 6 track slots, chunk 8) with the JAX
+detector and tracker in float32 and the same weights converted to the port
+(at bf16 the two frameworks round at other places; see
+tests/test_torch_fused.py). The bounds are the cross-compilation bound of
+``__graft_entry__.py:271-291``: keep bits exact, boxes within 0.5 px,
+scores within 0.01, path ids differing on < 1% of slots; track segments on
+the same frames.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vdetlib_tpu.data.synth import SynthConfig, box_proto, make_video, write_frames
+from vdetlib_tpu.nn import tracker_net as jtn
+from vdetlib_tpu.nn.backbone import Backbone as JBackbone
+from vdetlib_tpu.nn.backbone import BackboneConfig as JBackboneConfig
+from vdetlib_tpu.nn.detector import Detector as JDetector
+from vdetlib_tpu.nn.detector import DetectorConfig as JDetectorConfig
+from vdetlib_tpu.nn.heads import RCNNHead as JRCNNHead
+from vdetlib_tpu.video.track import init_tracker as j_init_tracker
+from vdetlib_tpu_torch.nn.detector import Detector
+from vdetlib_tpu_torch.nn.presets import detector_preset
+from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, TrackerNet
+from vdetlib_tpu_torch.protos import proto_dump, proto_load
+from vdetlib_tpu_torch.weights import detector_state_from_flax, tracker_state_from_flax
+
+HW = (96, 128)
+C, R, A, CH = 4, 16, 6, 8
+TOL_BOX, TOL_SCORE = 0.5, 0.01
+
+
+def _opts(mod, **kw):
+    return mod.StreamOptions(**{**dict(chunk=CH, max_rois=R, num_classes=C, track_slots=A,
+                                       seed_thresh=0.2, conf_thresh=0.3, max_paths=20), **kw})
+
+
+class _F32Detector(JDetector):
+    """The JAX detector with its head in float32 too (same parameter tree)."""
+
+    def setup(self):
+        self.backbone = JBackbone(self.config.backbone)
+        self.head = JRCNNHead(num_classes=self.config.num_classes,
+                              hidden=self.config.head_hidden, dtype=jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def nets():
+    jdet_cfg = JDetectorConfig(
+        num_classes=C, head_hidden=128,
+        backbone=JBackboneConfig(stem_features=16, stage_sizes=(1, 1, 1),
+                                 stage_features=(32, 64, 128), dtype=jnp.float32))
+    jdet = _F32Detector(jdet_cfg)
+    jdp = jax.tree.map(np.asarray, jax.jit(jdet.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1,) + HW + (3,)), jnp.zeros((1, R, 4))))
+    jdp["params"]["head"]["bbox"]["kernel"] = jdp["params"]["head"]["bbox"]["kernel"] * 0.1
+    jtrk_cfg = jtn.TrackerConfig(dtype=jnp.float32)
+    jtrk, jtp = j_init_tracker(jtrk_cfg, image_hw=HW, seed=0)
+    tdet = Detector(detector_preset("tiny", num_classes=C, dtype=torch.float32))
+    tdet.load_state_dict(detector_state_from_flax(jdp))
+    tdet.head.dtype = tdet.head.fc0.dtype = torch.float32
+    ttrk_cfg = TrackerConfig(dtype=torch.float32)
+    ttrk = TrackerNet(ttrk_cfg)
+    ttrk.load_state_dict(tracker_state_from_flax(jax.tree.map(np.asarray, jtp)))
+    return dict(jdet=jdet, jdp=jdp, jtrk=jtrk, jtp=jtp, jcfg=jtrk_cfg,
+                tdet=tdet.eval(), ttrk=ttrk.eval(), tcfg=ttrk_cfg)
+
+
+def _inputs(n_frames, seed):
+    """Jittered ground truth plus random clutter; a varying count of real
+    proposals per frame (the rest are zero boxes)."""
+    sv = make_video(SynthConfig(num_frames=n_frames, height=HW[0], width=HW[1], num_classes=C,
+                                seed=seed, max_speed=2.0))
+    rng = np.random.default_rng(seed)
+    rois = np.zeros((n_frames, R, 4), np.float32)
+    K = sv.gt_boxes.shape[0]
+    for t in range(n_frames):
+        n_real = R - int(rng.integers(0, 5))
+        k = rng.integers(0, K, n_real)
+        b = sv.gt_boxes[k, t] + rng.normal(0, 3, (n_real, 4))
+        b[::4, :2] = rng.uniform(0, 80, (len(b[::4]), 2))  # clutter
+        b[::4, 2:] = b[::4, :2] + rng.uniform(10, 40, (len(b[::4]), 2))
+        rois[t, :n_real] = np.clip(b, 0, [HW[1] - 1, HW[0] - 1] * 2)
+    return sv, rois
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _close_boxes(got, want, mask=None):
+    g, w = np.asarray(got), np.asarray(want)
+    if mask is not None:
+        g, w = g[mask], w[mask]
+    np.testing.assert_allclose(g, w, atol=TOL_BOX, rtol=0)
+
+
+def _chunks(frames):
+    return (frames[s:s + CH] for s in range(0, len(frames), CH))
+
+
+def _compare_results(got, want):
+    assert got["num_frames"] == want["num_frames"]
+    np.testing.assert_array_equal(got["keep"], want["keep"])
+    m = want["keep"].any(1)
+    _close_boxes(got["boxes"], want["boxes"], m)
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=TOL_SCORE, rtol=0)
+    np.testing.assert_allclose(got["seq_scores"], want["seq_scores"], atol=TOL_SCORE, rtol=0)
+    assert (got["path_ids"] != want["path_ids"]).mean() < 0.01
+    assert set(got["tracks"]) == set(want["tracks"])
+    for tid, wseg in want["tracks"].items():
+        gseg = got["tracks"][tid]
+        assert [t for t, _, _ in gseg] == [t for t, _, _ in wseg], tid
+        _close_boxes(np.stack([b for _, b, _ in gseg]), np.stack([b for _, b, _ in wseg]))
+        np.testing.assert_allclose([s for _, _, s in gseg], [s for _, _, s in wseg],
+                                   atol=TOL_SCORE, rtol=0)
+
+
+def _preconditions(res, rois):
+    assert res["num_frames"] % CH != 0  # a partial final chunk
+    segs = res["tracks"].values()
+    seed_chunks = {max(seg, key=lambda e: e[2])[0] // CH for seg in segs}
+    assert len(seed_chunks) >= 2, seed_chunks
+    assert any(min(t for t, _, _ in s) // CH != max(t for t, _, _ in s) // CH for s in segs)
+    assert any(s == 0.0 for seg in segs for _, _, s in seg)  # backtracked entries
+    kept = res["keep"].any(1)
+    assert len(set(kept.sum(1).tolist())) > 1, "slot layout is constant"
+    assert len({int((r != 0).any(-1).sum()) for r in rois}) > 1, "roi counts do not vary"
+    assert (res["path_ids"] >= 0).any()
+
+
+def _compare_protos(td, jd, tt, jt, tk, jk):
+    assert len(jd["detections"]) > 0 and len(td["detections"]) == len(jd["detections"])
+    for a, b in zip(td["detections"], jd["detections"]):
+        assert a["frame"] == b["frame"]
+        np.testing.assert_allclose(a["bbox"], b["bbox"], atol=TOL_BOX, rtol=0)
+        assert [s["class_index"] for s in a["scores"]] == [s["class_index"] for s in b["scores"]]
+        np.testing.assert_allclose([s["score"] for s in a["scores"]],
+                                   [s["score"] for s in b["scores"]], atol=TOL_SCORE, rtol=0)
+    assert [len(t) for t in tt["tracks"]] == [len(t) for t in jt["tracks"]]
+    assert tk["method"] == jk["method"] == "stream_tracker"
+    assert [[e["frame"] for e in t] for t in tk["tracks"]] == \
+        [[e["frame"] for e in t] for t in jk["tracks"]]
+    for a, b in zip(tk["tracks"], jk["tracks"]):
+        np.testing.assert_allclose([e["bbox"] for e in a], [e["bbox"] for e in b],
+                                   atol=TOL_BOX, rtol=0)
+
+
+def _run_clis(nets, tmp_path, monkeypatch, n_frames, extra=()):
+    """Both stream tools over the same JPEG frames and proposals, their
+    random weights replaced by the same converted float32 weights; returns
+    the argv (without workdir) and each tool's (final, tubelets, track)
+    protos."""
+    import vdetlib_tpu.cli.stream as jcli
+    import vdetlib_tpu.nn.detector as jdetector
+    import vdetlib_tpu.video.track as jtrack
+    import vdetlib_tpu_torch.cli.stream as tcli
+    import vdetlib_tpu_torch.weights as tweights
+
+    sv = make_video(SynthConfig(num_frames=n_frames, height=HW[0], width=HW[1], num_classes=C,
+                                seed=9, max_speed=2.0, proposals_per_frame=R), video="clip")
+    proto_dump(write_frames(sv, str(tmp_path / "frames")), str(tmp_path / "clip.vid.json"))
+    proto_dump(box_proto(sv), str(tmp_path / "clip.box.json"))
+    monkeypatch.setattr(jdetector, "init_detector", lambda *a, **k: (nets["jdet"], nets["jdp"]))
+    monkeypatch.setattr(jtrack, "init_tracker", lambda *a, **k: (nets["jtrk"], nets["jtp"]))
+    monkeypatch.setattr(tweights, "init_detector", lambda *a, **k: nets["tdet"])
+    monkeypatch.setattr(tweights, "init_tracker", lambda *a, **k: nets["ttrk"])
+    argv = [str(tmp_path / "clip.vid.json"), "--model", "tiny", "--num_classes", str(C),
+            "--image_hw", str(HW[0]), str(HW[1]), "--max_rois", str(R), "--chunk", str(CH),
+            "--track_slots", str(A), "--seed_thresh", "0.2", *extra]
+    assert jcli.main(argv[:1] + [str(tmp_path / "j")] + argv[1:]) == 0
+    assert tcli.main(argv[:1] + [str(tmp_path / "t")] + argv[1:] + ["--device", "cpu"]) == 0
+    out = {}
+    for side in "jt":
+        vdir = tmp_path / side / "clip"
+        out[side] = [proto_load(str(vdir / f)) for f in ("final.json", "tubelets.json",
+                                                        "track.json")]
+    return argv, out["j"], out["t"]

@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.weights:
         raise NotImplementedError(
-            "loading detector checkpoints is not ported yet (ROADMAP.md Queue 1, item 13)"
+            "loading detector checkpoints is not ported yet (ROADMAP.md Queue 1, item 1)"
         )
 
     from vdetlib_tpu_torch.protos import proto_dump, proto_exists, proto_load

@@ -3,7 +3,8 @@
 Counterpart of ``python -m vdetlib_tpu frame_nms``, with the same flags plus
 ``--device``: JSON protos in and out; ``--backend host`` needs no device,
 ``xla`` and ``pallas`` run the NMS kernels on the card (``--device cpu`` runs
-their plain versions instead).
+their plain versions instead), ``fixpoint`` the Jacobi form's batched
+products there.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ def main(argv=None) -> int:
     p.add_argument("--thresh", type=float, default=0.3, help="IoU threshold")
     p.add_argument("--backend", choices=BACKENDS, default="host")
     p.add_argument("--max_boxes", type=int, default=512, help="device padding budget")
-    p.add_argument("--device", default="cuda", help="device of the pallas (= xla) backend")
+    p.add_argument("--device", default="cuda", help="device of the xla, pallas and fixpoint backends")
     p.add_argument("--overwrite", action="store_true")
     args = p.parse_args(argv)
 

@@ -46,7 +46,8 @@ def main(argv=None) -> int:
     p.add_argument("--conf_thresh", type=float, default=0.3)
     p.add_argument("--min_score", type=float, default=0.0)
     p.add_argument("--track_stride", type=int, default=1,
-                   help="advance the online NCC scan every s-th frame (only 1 is ported)")
+                   help="advance the online NCC scan every s-th frame (1=frame-exact, "
+                        "2=half the tracker compute; skipped frames interpolate)")
     p.add_argument("--no_mgp", action="store_true")
     p.add_argument("--no_backtrack", action="store_true")
     p.add_argument("--overwrite", action="store_true")
@@ -55,7 +56,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.detector_weights or args.tracker_weights:
         raise NotImplementedError(
-            "loading detector/tracker checkpoints is not ported yet (ROADMAP.md Queue 1, item 13)"
+            "loading detector/tracker checkpoints is not ported yet (ROADMAP.md Queue 1, item 1)"
         )
 
     import numpy as np

@@ -4,7 +4,9 @@ Semantics contract (shared with the JAX package and the numpy oracle in
 ``tests/oracle/nms.py``): visit boxes by (score desc, index asc); suppress
 when IoU with any kept box is strictly greater than ``thresh``. The plain
 fixpoint and the CUDA kernel B live in :mod:`.nms_grouped`, kernel C in
-:mod:`.nms_batched`, kernel D in :mod:`.nms_sorted`.
+:mod:`.nms_batched`, kernel D in :mod:`.nms_sorted`. :func:`nms_xla` and
+:func:`nms_fixpoint` are the JAX package's XLA forms (no Pallas kernel
+computes them there), in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -12,14 +14,77 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET
+from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET, pairwise_iou
 from vdetlib_tpu_torch.kernels.nms_batched import MAX_SLOTS as BATCHED_MAX
 from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
 from vdetlib_tpu_torch.kernels.nms_grouped import MAX_SLOTS as GROUPED_MAX
 from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel, nms_unsorted_fixpoint
-from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
+from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel, visit_order
 
-__all__ = ["batched_nms", "nms_grouped", "nms_host", "nms_unsorted_fixpoint"]
+__all__ = ["batched_nms", "nms_fixpoint", "nms_grouped", "nms_host", "nms_unsorted_fixpoint",
+           "nms_xla", "sort_by_score"]
+
+# the Jacobi steps between two convergence checks of nms_fixpoint (each
+# check reads a flag back to the host)
+FIXPOINT_CHECK_EVERY = 8
+
+
+def sort_by_score(scores, valid):
+    """Visit order: valid first, score desc, original index asc → (..., N)
+    int64 (``jnp.argsort(-masked, stable=True)``: -0.0 ties +0.0, NaN after
+    every number)."""
+    return visit_order(scores, valid)
+
+
+def nms_xla(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFSET):
+    """Greedy NMS over one padded problem, the masked-greedy loop of N steps.
+
+    boxes (N, 4), scores/valid (N,) → (keep (N,) bool in input order,
+    order (N,) the visit order)."""
+    n = boxes.shape[0]
+    order = sort_by_score(scores, valid)
+    sboxes = boxes[order]
+    suppress = pairwise_iou(sboxes, sboxes, offset=offset) > thresh
+    later = torch.arange(n, device=boxes.device)
+    keep = valid[order]
+    for i in range(n):  # a kept box knocks out every later box it overlaps too much
+        keep = torch.where(keep[i], keep & ~(suppress[i] & (later > i)), keep)
+    return torch.zeros_like(keep).scatter(0, order, keep), order
+
+
+def nms_fixpoint(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFSET):
+    """Greedy NMS as a Jacobi fixpoint — the JAX package's MXU form.
+
+    In visit order, ``keep[i] = valid[i] ∧ ¬∃ j<i: M[i,j] ∧ keep[j]`` (M =
+    IoU > thresh) has one solution, the greedy keep set; the iteration
+    ``keep ← valid ∧ ¬(M·keep > 0)`` reaches it in as many steps as the
+    suppression chains are deep, each step one batched matrix-vector
+    product. JAX stops when a step changes nothing (or after N steps); this
+    checks every ``FIXPOINT_CHECK_EVERY`` steps, capped at N, which gives
+    the same keep set: a converged fixpoint stays.
+
+    boxes (..., N, 4), scores/valid (..., N) → keep (..., N) bool in input
+    order.
+    """
+    n = boxes.shape[-2]
+    order = sort_by_score(scores, valid)
+    sboxes = torch.take_along_dim(boxes, order[..., None], dim=-2)
+    svalid = torch.take_along_dim(valid, order, dim=-1)
+    idx = torch.arange(n, device=boxes.device)
+    lower = idx[:, None] > idx[None, :]  # row i is suppressed by an earlier column j
+    m = ((pairwise_iou(sboxes, sboxes, offset=offset) > thresh) & lower
+         & svalid[..., None, :]).float()
+    svalid_f = svalid.float()
+    keep, steps = svalid_f, 0
+    while steps < n:
+        for _ in range(min(FIXPOINT_CHECK_EVERY, n - steps)):
+            prev = keep
+            suppressed = torch.matmul(m, keep[..., None])[..., 0] > 0.5
+            keep = svalid_f * (1.0 - suppressed.float())
+            steps += 1
+        if torch.equal(keep, prev):
+            break
+    return torch.zeros_like(svalid).scatter(-1, order, keep > 0.5)
 
 
 def batched_nms(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFSET):

@@ -13,8 +13,9 @@ identical keep sets:
   the JAX package takes any N);
 - ``xla``: the same route as ``pallas`` (the JAX package's XLA fixpoint
   computes the same keep sets; the port has one device route);
-- ``fixpoint`` (the JAX sorted Jacobi form, ``nms_fixpoint``): not ported
-  yet, raises ``NotImplementedError`` (ROADMAP.md, Queue 1).
+- ``fixpoint``: the same padding, then the sorted Jacobi form
+  (``kernels/nms.py::nms_fixpoint``, batched matrix-vector products) on
+  ``device``, over at most ``FIXPOINT_ELEMS`` adjacency entries a pass.
 
 A detection takes part in class c's NMS only where it carries a score entry
 for c; it keeps the classes where it survived, and a detection with none
@@ -28,13 +29,18 @@ import numpy as np
 import torch
 
 from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET
-from vdetlib_tpu_torch.kernels.nms import nms_host
+from vdetlib_tpu_torch.kernels.nms import nms_fixpoint, nms_host
 from vdetlib_tpu_torch.kernels.nms_batched import MAX_SLOTS as _BATCHED_MAX
 from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
 from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
 from vdetlib_tpu_torch.protos.accessors import det_class_indices, frame_ids
 
 BACKENDS = ("host", "xla", "fixpoint", "pallas")
+# the (problems, N, N) float32 adjacency of the fixpoint backend is built
+# for at most this many entries at once (512 MiB; the pairwise IoU's
+# intermediates of the same shape take several times that at the pass's
+# peak): 1,920 problems of 512 boxes would take 2 GiB in one pass
+FIXPOINT_ELEMS = 1 << 27
 
 
 def frame_nms(vid_proto: dict, det_proto: dict, thresh: float = 0.3, backend: str = "host",
@@ -45,13 +51,9 @@ def frame_nms(vid_proto: dict, det_proto: dict, thresh: float = 0.3, backend: st
     for the CPU, where the kernels' plain versions run)."""
     if backend == "host":
         return _frame_nms_host(vid_proto, det_proto, thresh, offset)
-    if backend == "fixpoint":
-        raise NotImplementedError(
-            "frame_nms backend 'fixpoint' is not ported yet (ROADMAP.md, Queue 1)"
-        )
-    if backend in ("xla", "pallas"):
+    if backend in ("xla", "fixpoint", "pallas"):
         return _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes,
-                                 torch.device(device))
+                                 torch.device(device), backend)
     raise ValueError(f"unknown backend: {backend}")
 
 
@@ -112,18 +114,23 @@ def pack_frame_problems(vid_proto: dict, det_proto: dict, max_boxes: int):
     return boxes, scores, has_entry, det_index, classes
 
 
-def _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes, device) -> dict:
+def _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes, device,
+                      backend) -> dict:
     boxes, scores, has_entry, det_index, classes = pack_frame_problems(vid_proto, det_proto,
                                                                        max_boxes)
     T, C, N = scores.shape
-    b = torch.from_numpy(boxes).to(device)[:, None].expand(T, C, N, 4)
-    s = torch.from_numpy(scores).to(device)
-    v = torch.from_numpy(has_entry).to(device)
-    kernel = nms_batched_kernel if N <= _BATCHED_MAX else nms_sorted_kernel
+    b = torch.from_numpy(boxes).to(device)[:, None].expand(T, C, N, 4).reshape(T * C, N, 4)
+    s = torch.from_numpy(scores).to(device).reshape(T * C, N)
+    v = torch.from_numpy(has_entry).to(device).reshape(T * C, N)
     with torch.no_grad():
-        keep = kernel(b.reshape(T * C, N, 4).contiguous(), s.reshape(T * C, N),
-                      v.reshape(T * C, N), thresh, offset).reshape(T, C, N)
-    keep = keep.cpu().numpy() & has_entry
+        if backend == "fixpoint":
+            step = max(1, FIXPOINT_ELEMS // (N * N))
+            keep = torch.cat([nms_fixpoint(b[i:i + step], s[i:i + step], v[i:i + step], thresh,
+                                           offset) for i in range(0, T * C, step)])
+        else:
+            kernel = nms_batched_kernel if N <= _BATCHED_MAX else nms_sorted_kernel
+            keep = kernel(b.contiguous(), s, v, thresh, offset)
+    keep = keep.reshape(T, C, N).cpu().numpy() & has_entry
     kept_pairs: set[tuple[int, int]] = set()
     for t, c, n in zip(*np.nonzero(keep)):
         kept_pairs.add((int(det_index[t, n]), classes[c]))
