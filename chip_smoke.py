@@ -81,6 +81,26 @@ Phases, each synchronised and each fatal on failure:
    frames/s for each engine and stride, and the ``stream.track_features``
    and ``stream.track_chunk`` spans at both strides (profiler, fused step).
 
+10. fused sweep: phase 5's models are saved with ``save_params`` and
+   loaded with ``load_params`` into models built from other seeds (every
+   tensor equal bit for bit; file sizes and load time printed); those
+   models run ``run_videos_fused`` over phase 5's three videos, frames in
+   memory, with a ``PipelineConfig`` whose ``fused_config_from_pipeline``
+   is phase 5's ``FusedConfig`` (its calibrated ``anchor_thresh``
+   included); each video's ``final.json`` and ``tubelets.json`` must equal,
+   byte for byte, ``fused_to_protos`` of a direct call of phase 5's
+   pipeline on the same inputs; ``group_size`` 2 must equal 1 byte for
+   byte; a second run must write nothing; with ``keep_going`` a fourth
+   entry without proposals is marked failed and the other three complete,
+   and without it the sweep raises. Kernels A, B and F must launch in the
+   sweep (counted apart from phases 5–9). Prints the sweep's frames/s
+   (valid frames over the wall of ``run_videos_fused``: loading, upload,
+   pipeline and proto writes) beside phase 5's pipeline-only rate, the
+   seconds the main thread waited on the prefetch thread, and the peak
+   device memory. The ``pipeline`` tool itself reads JPEG frames, which
+   needs ``cv2`` (absent on the card's machine), so the tool runs in the
+   CPU tests (tests/test_torch_fused_runner.py), not here.
+
 Around each of phases 5–8 the kernels' launch counters are zeroed just
 before and read just after; a kernel's ``launches`` in the record is the
 count from its own path (A, B: fused slice; C: stream; D: frame NMS; E, F:
@@ -1126,7 +1146,8 @@ def phase_slice(dev, kernels, profile_dir=None):
         profile_one(lambda: pipe(*[torch.from_numpy(a).to(dev) for a in videos[-1][:2]],
                                  videos[-1][2], torch.from_numpy(videos[-1][3]).to(dev)),
                     profile_dir, "profile.txt", "fused.")
-    return launches, n_frames / sum(times), steady, peak
+    # phase 10 rebuilds the models from their seeds: none stays on the card
+    return launches, n_frames / sum(times), steady, peak, {"cfg": pipe.cfg, "videos": videos}
 
 
 def profile_one(run, out_dir, fname, prefix):
@@ -1669,6 +1690,192 @@ def phase_staged(dev, kernels, profile_dir=None):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def sweep_config(fcfg):
+    """The ``PipelineConfig`` whose fused config is ``fcfg`` (phase 5's)."""
+    from vdetlib_tpu_torch.pipeline.fused_runner import fused_config_from_pipeline
+    from vdetlib_tpu_torch.pipeline.runner import PipelineConfig
+    from vdetlib_tpu_torch.video.detect import DetectOptions
+    from vdetlib_tpu_torch.video.link import LinkOptions
+    from vdetlib_tpu_torch.video.mgp import MGPOptions
+    from vdetlib_tpu_torch.video.rescore import RescoreOptions
+    from vdetlib_tpu_torch.video.track import TrackOptions
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+
+    cfg = PipelineConfig(
+        detect=DetectOptions(batch_size=fcfg.detect_batch, max_rois=R, image_hw=(H, W)),
+        mgp=MGPOptions(num_classes=C, image_hw=(H, W)),
+        track=TrackOptions(max_tracks=fcfg.max_tracks, anchors_per_round=fcfg.anchors_per_round,
+                           anchor_thresh=fcfg.anchor_thresh, batch_size=fcfg.feat_batch,
+                           image_hw=(H, W)),
+        tracker_cfg=TrackerConfig(),
+        rescore=RescoreOptions(num_classes=C),
+        link=LinkOptions(num_classes=C, max_paths=fcfg.max_paths),
+    )
+    assert fused_config_from_pipeline(cfg) == fcfg, "the sweep's config is not phase 5's"
+    return cfg
+
+
+def sweep_entries(videos):
+    """Phase 5's videos as ``run_videos_fused`` entries: (vid_proto, box_proto,
+    frames in memory), each holding R proposals a frame."""
+    from vdetlib_tpu_torch.data.synth import vid_proto_in_memory
+
+    entries = []
+    for i, (frames, rois, t_valid, roi_mask, fids) in enumerate(videos):
+        assert roi_mask[:t_valid].all()
+        sv = dataclasses.replace(synth(t_valid, i), video=f"synth{i:03d}")
+        assert list(sv.frame_ids) == list(fids) and np.array_equal(sv.frames, frames[:t_valid])
+        entries.append((vid_proto_in_memory(sv), staged_box_proto(rois[:t_valid], sv),
+                        frames[:t_valid]))
+    return entries
+
+
+def direct_protos(pipe, dev, videos, names, min_score, out_dir):
+    """``fused_to_protos`` of direct pipeline calls, trimmed to the real frames
+    as the sweep does, written as the sweep writes them; returns the seconds
+    spent in the pipeline (synchronised), in ``fused_to_protos`` and in the
+    writes, summed over the videos."""
+    import os
+
+    from vdetlib_tpu_torch.pipeline.fused import fused_to_protos
+    from vdetlib_tpu_torch.protos import proto_dump
+
+    spent = np.zeros(3)
+    for (frames, rois, t_valid, roi_mask, fids), name in zip(videos, names):
+        args = [torch.from_numpy(a).to(dev) for a in (frames, rois, roi_mask)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(args[0], args[1], t_valid, args[2])
+        out = out._replace(det_boxes=out.det_boxes[:t_valid], det_scores=out.det_scores[:t_valid],
+                           det_mask=out.det_mask[:t_valid],
+                           final_scores=out.final_scores[:, :t_valid],
+                           path_ids=out.path_ids[:, :t_valid])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        det_proto, tubelets = fused_to_protos(out, fids, name, min_score=min_score)
+        t2 = time.perf_counter()
+        proto_dump(det_proto, os.path.join(out_dir, name, "final.json"))
+        proto_dump(tubelets, os.path.join(out_dir, name, "tubelets.json"))
+        spent += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    return spent
+
+
+def file_bytes(results):
+    import pathlib
+
+    return [{k: pathlib.Path(r[k]).read_bytes() for k in ("final", "tubelets")} for r in results]
+
+
+def phase_sweep(dev, kernels, ctx, slice_fps, card):
+    """Phase 10: checkpoints of phase 5's models (drawn again from their
+    seeds), then ``run_videos_fused`` over phase 5's videos with the loaded
+    models; returns the sweep's kernel launches, counted apart from phases
+    5-9."""
+    import os
+    import tempfile
+
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_params, save_params
+    from vdetlib_tpu_torch.pipeline.fused import make_fused_pipeline
+    from vdetlib_tpu_torch.pipeline.fused_runner import run_videos_fused
+    from vdetlib_tpu_torch.pipeline.runner import Models
+
+    videos = ctx["videos"]
+    pipe = make_fused_pipeline(*base_models(dev), ctx["cfg"])
+    cfg = sweep_config(pipe.cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        # checkpoints: into models drawn from other seeds, on the card
+        paths = {"detector": os.path.join(tmp, "detector.pt"),
+                 "tracker": os.path.join(tmp, "tracker.pt")}
+        save_params(paths["detector"], pipe.det_model)
+        save_params(paths["tracker"], pipe.trk_model)
+        det, trk, _ = base_models(dev, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_params(paths["detector"], det)
+        load_params(paths["tracker"], trk)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        for name, a, b in (("detector", pipe.det_model, det), ("tracker", pipe.trk_model, trk)):
+            sa, sb = a.state_dict(), b.state_dict()
+            assert sorted(sa) == sorted(sb)
+            for k in sa:
+                assert sb[k].device == sa[k].device and sb[k].dtype == sa[k].dtype \
+                    and torch.equal(sb[k], sa[k]), f"{name} checkpoint: {k} differs"
+        log(f"checkpoints: detector {os.path.getsize(paths['detector'])} bytes "
+            f"({len(det.state_dict())} tensors), tracker {os.path.getsize(paths['tracker'])} "
+            f"bytes ({len(trk.state_dict())} tensors); both loaded onto the card in "
+            f"{load_s * 1e3:.1f} ms; every tensor equal bit for bit")
+
+        # the sweep, with the loaded models
+        models = Models(det, trk)
+        entries = sweep_entries(videos)
+        names = [e[0]["video"] for e in entries]
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        os.environ["VDETLIB_TPU_METRICS"] = metrics_path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        g1 = run_videos_fused(os.path.join(tmp, "g1"), entries, models, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels, "fused sweep (phase 10)",
+                               ("flow_level", "nms_grouped", "track_scan"))
+        peak = torch.cuda.max_memory_allocated()
+        del os.environ["VDETLIB_TPU_METRICS"]
+        with open(metrics_path) as f:
+            record = [json.loads(line) for line in f][-1]
+        assert record["stage"] == "pipeline_fused" and record["frames"] == sum(VIDEO_LENGTHS)
+        assert not any(r.get("error") for r in g1)
+
+        direct_dir = os.path.join(tmp, "direct")
+        spent = direct_protos(pipe, dev, videos, names, cfg.link.min_score, direct_dir)
+        want = file_bytes([{k: os.path.join(direct_dir, n, f"{k}.json")
+                            for k in ("final", "tubelets")} for n in names])
+        got = file_bytes(g1)
+        for name, w, g in zip(names, want, got):
+            for k in ("final", "tubelets"):
+                assert g[k] == w[k], f"sweep {name}/{k}.json differs from the direct pipeline's"
+        n_dets = [len(json.loads(g["final"])["detections"]) for g in got]
+        n_tubes = [len(json.loads(g["tubelets"])["tracks"]) for g in got]
+        assert min(n_dets) > 0 and min(n_tubes) > 0
+        log(f"sweep == direct pipeline + fused_to_protos, byte for byte, {len(names)} videos "
+            f"(final dets {n_dets}, tubelets {n_tubes})")
+
+        # grouping, resume, keep_going
+        g2 = run_videos_fused(os.path.join(tmp, "g2"), entries, models, cfg, group_size=2)
+        assert file_bytes(g2) == got, "group_size 2 differs from group_size 1"
+        stamps = [os.stat(r[k]).st_mtime_ns for r in g1 for k in ("final", "tubelets")]
+        again = run_videos_fused(os.path.join(tmp, "g1"), entries, models, cfg)
+        assert [os.stat(r[k]).st_mtime_ns for r in again for k in ("final", "tubelets")] \
+            == stamps, "a resumed sweep rewrote an output"
+        bad = dict(entries[0][0], video="synth_nobox")
+        sweep4 = entries + [(bad, None, entries[0][2])]
+        kg = run_videos_fused(os.path.join(tmp, "kg"), sweep4, models, cfg, keep_going=True)
+        assert "box_proto" in kg[3].get("error", "") and not os.path.exists(kg[3]["final"])
+        assert file_bytes(kg[:3]) == got, "keep_going changed the other videos"
+        try:
+            run_videos_fused(os.path.join(tmp, "kg"), sweep4, models, cfg)
+        except ValueError as e:
+            assert "box_proto" in str(e)
+        else:
+            raise AssertionError("a video without proposals did not stop the sweep")
+        log("sweep: group_size 2 == 1 byte for byte; the resumed sweep wrote nothing; "
+            "keep_going marked the entry without proposals failed and completed the other "
+            "three; without keep_going it raised")
+
+    fps = sum(VIDEO_LENGTHS) / wall
+    log(f"sweep on {card}: {sum(VIDEO_LENGTHS)} frames in {wall:.3f} s = {fps:.2f} frames/s "
+        f"(run_videos_fused: load, upload, pipeline, protos), against phase 5's pipeline-only "
+        f"{slice_fps:.2f} frames/s; prefetch wait {record['prefetch_wait_s']:.4f} s; peak "
+        f"device memory {peak / 2**20:.1f} MiB; the direct calls' {sum(spent):.3f} s: pipeline "
+        f"{spent[0]:.3f} s, fused_to_protos {spent[1]:.3f} s, proto writes {spent[2]:.3f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1748,7 +1955,7 @@ def main(argv=None) -> int:
                "nms_batched": nms_batched_kernel, "nms_sorted": nms_sorted_kernel,
                "resize_normalize": fused_resize_normalize_kernel,
                "track_scan": track_scan_kernel}
-    slice_counts, fps, steady, peak = phase_slice(dev, kernels, args.profile)
+    slice_counts, fps, steady, peak, slice_ctx = phase_slice(dev, kernels, args.profile)
     torch.cuda.synchronize()
     log(f"slice throughput on {card}: {fps:.2f} frames/s overall, {steady:.2f} frames/s "
         f"steady; peak memory {peak / 2**20:.1f} MiB")
@@ -1763,6 +1970,8 @@ def main(argv=None) -> int:
     staged_counts = phase_staged(dev, kernels, args.profile)
     torch.cuda.synchronize()
     phase_stream_engines(kernels, stream_models, stream_ctx)
+    torch.cuda.synchronize()
+    phase_sweep(dev, kernels, slice_ctx, fps, card)
     torch.cuda.synchronize()
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,

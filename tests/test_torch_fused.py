@@ -23,32 +23,20 @@ Per the parity-test blind spots (CLAUDE.md), the fixture asserts that slot
 layouts and roi counts vary from frame to frame.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.torch_fused_common import HW, C, R, f32_nets
 from vdetlib_tpu.data.synth import SynthConfig, make_video
-from vdetlib_tpu.nn import tracker_net as jtn
-from vdetlib_tpu.nn.backbone import Backbone as JBackbone
-from vdetlib_tpu.nn.backbone import BackboneConfig as JBackboneConfig
-from vdetlib_tpu.nn.detector import Detector as JDetector
-from vdetlib_tpu.nn.detector import DetectorConfig as JDetectorConfig
-from vdetlib_tpu.nn.heads import RCNNHead as JRCNNHead
 from vdetlib_tpu.pipeline import fused as jfused
 from vdetlib_tpu.video.detect import _detect_step as j_detect_step
-from vdetlib_tpu.video.track import init_tracker as j_init_tracker
-from vdetlib_tpu_torch.nn.detector import Detector
-from vdetlib_tpu_torch.nn.presets import detector_preset
-from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, TrackerNet
 from vdetlib_tpu_torch.pipeline import fused as tfused
-from vdetlib_tpu_torch.weights import detector_state_from_flax, tracker_state_from_flax
 
 torch.set_num_threads(2)
 
-HW = (96, 128)
-T, R, C, A = 8, 16, 4, 4
+T, A = 8, 4
 NB = 24
 TOL = {"det_boxes": 0.5, "track_boxes": 0.5, "det_scores": 0.01, "track_conf": 0.01,
        "tubelet_stats": 0.01, "final_scores": 0.01}
@@ -59,15 +47,6 @@ def _cfg(mod):
         image_hw=HW, detect_batch=4, feat_batch=4, anchors_per_round=A, max_tracks=2 * A,
         max_paths=16, det_budget=NB, out_budget=NB, score_thresh=0.2, anchor_thresh=0.26,
     )
-
-
-class _F32Detector(JDetector):
-    """The JAX detector with its head in float32 too (same parameter tree)."""
-
-    def setup(self):
-        self.backbone = JBackbone(self.config.backbone)
-        self.head = JRCNNHead(num_classes=self.config.num_classes,
-                              hidden=self.config.head_hidden, dtype=jnp.float32)
 
 
 def _inputs(seed):
@@ -87,26 +66,10 @@ def _inputs(seed):
 
 @pytest.fixture(scope="module")
 def nets():
-    jdet_cfg = JDetectorConfig(
-        num_classes=C, head_hidden=128,
-        backbone=JBackboneConfig(stem_features=16, stage_sizes=(1, 1, 1),
-                                 stage_features=(32, 64, 128), dtype=jnp.float32))
-    jdet = _F32Detector(jdet_cfg)
-    jdp = jax.tree.map(np.asarray, jax.jit(jdet.init)(
-        jax.random.PRNGKey(0), jnp.zeros((1,) + HW + (3,)), jnp.zeros((1, R, 4))))
-    # a trained regressor's delta scale (see tests/test_torch_detector.py)
-    jdp["params"]["head"]["bbox"]["kernel"] = jdp["params"]["head"]["bbox"]["kernel"] * 0.1
-    jtrk_cfg = jtn.TrackerConfig(dtype=jnp.float32)
-    jtrk, jtp = j_init_tracker(jtrk_cfg, image_hw=HW, seed=0)
-    tdet = Detector(detector_preset("tiny", num_classes=C, dtype=torch.float32))
-    tdet.load_state_dict(detector_state_from_flax(jdp))
-    tdet.head.dtype = tdet.head.fc0.dtype = torch.float32
-    ttrk_cfg = TrackerConfig(dtype=torch.float32)
-    ttrk = TrackerNet(ttrk_cfg)
-    ttrk.load_state_dict(tracker_state_from_flax(jax.tree.map(np.asarray, jtp)))
-    jpipe = jfused.make_fused_pipeline(jdet, jtrk, jtrk_cfg, _cfg(jfused))
-    tpipe = tfused.make_fused_pipeline(tdet.eval(), ttrk.eval(), ttrk_cfg, _cfg(tfused))
-    return jdet, jdp, jtrk, jtp, jtrk_cfg, jpipe, tpipe
+    n = f32_nets()
+    jpipe = jfused.make_fused_pipeline(n.jdet, n.jtrk, n.jtrk_cfg, _cfg(jfused))
+    tpipe = tfused.make_fused_pipeline(n.tdet, n.ttrk, n.ttrk_cfg, _cfg(tfused))
+    return n.jdet, n.jdp, n.jtrk, n.jtp, n.jtrk_cfg, jpipe, tpipe
 
 
 def _t(x):

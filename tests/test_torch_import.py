@@ -52,6 +52,8 @@ def test_slice_modules_listed():
         "video.frame_nms", "cli.stream", "cli.frame_nms", "protos.codec", "protos.accessors",
         "protos.arrays", "data.synth", "data.loader", "utils.log", "__main__",
         "kernels.preprocess", "kernels.track_scan", "cli.detect", "cli.track", "utils.common",
+        "pipeline.checkpoint", "pipeline.runner", "pipeline.fused_runner", "dist.sharding",
+        "evaluation.vid_map", "evaluation.calibration", "video.perturb", "cli.pipeline_tool",
     ):
         assert "vdetlib_tpu_torch." + m in MODULES, m
 

@@ -247,8 +247,13 @@ def test_detect_tool_matches_jax_tool(dets, tmp_path, monkeypatch):
     assert jcli.main(argv + [str(tmp_path / "j.json")] + flags) == 0
     assert tcli.main(argv + [str(tmp_path / "t.json")] + flags + ["--device", "cpu"]) == 0
     _compare_det_protos(proto_load(str(tmp_path / "t.json")), proto_load(str(tmp_path / "j.json")))
-    with pytest.raises(NotImplementedError):
-        tcli.main(argv + [str(tmp_path / "t2.json"), "--weights", "ckpt", "--device", "cpu"])
+    # --weights loads a checkpoint into the tool's model (here its own weights)
+    from vdetlib_tpu_torch.pipeline.checkpoint import save_params
+
+    save_params(str(tmp_path / "det.pt"), tmodel)
+    assert tcli.main(argv + [str(tmp_path / "t2.json")] + flags
+                     + ["--weights", str(tmp_path / "det.pt"), "--device", "cpu"]) == 0
+    assert proto_load(str(tmp_path / "t2.json")) == proto_load(str(tmp_path / "t.json"))
 
 
 def test_track_tool_matches_jax_tool(trackers, tmp_path, monkeypatch):
@@ -268,6 +273,12 @@ def test_track_tool_matches_jax_tool(trackers, tmp_path, monkeypatch):
     assert tcli.main(argv + [str(tmp_path / "t.json")] + flags + ["--device", "cpu"]) == 0
     _compare_track_protos(proto_load(str(tmp_path / "t.json")),
                           proto_load(str(tmp_path / "j.json")))
-    for bad in (["--weights", "ckpt"], ["--snap_weight", "0.5"]):
-        with pytest.raises(NotImplementedError):
-            tcli.main(argv + [str(tmp_path / "t2.json"), "--device", "cpu"] + bad)
+    with pytest.raises(NotImplementedError):
+        tcli.main(argv + [str(tmp_path / "t2.json"), "--device", "cpu", "--snap_weight", "0.5"])
+    # --weights loads a checkpoint into the tool's model (here its own weights)
+    from vdetlib_tpu_torch.pipeline.checkpoint import save_params
+
+    save_params(str(tmp_path / "trk.pt"), tmodel)
+    assert tcli.main(argv + [str(tmp_path / "t3.json")] + flags
+                     + ["--weights", str(tmp_path / "trk.pt"), "--device", "cpu"]) == 0
+    assert proto_load(str(tmp_path / "t3.json")) == proto_load(str(tmp_path / "t.json"))

@@ -253,6 +253,14 @@ def test_stream_cli_matches_jax_cli(nets, tmp_path, monkeypatch):
     argv, (jd, jt, jk), (td, tt, tk) = _run_clis(nets, tmp_path, monkeypatch, T)
     _compare_protos(td, jd, tt, jt, tk, jk)
     assert len(jk["tracks"]) > 0
-    with pytest.raises(NotImplementedError):
-        tcli.main(argv[:1] + [str(tmp_path / "t2"), "--device", "cpu",
-                              "--detector_weights", "ckpt"])
+    # the weight flags load checkpoints into the tool's models (here their own weights)
+    from vdetlib_tpu_torch.pipeline.checkpoint import save_params
+    from vdetlib_tpu_torch.protos import proto_load
+
+    save_params(str(tmp_path / "det.pt"), nets["tdet"])
+    save_params(str(tmp_path / "trk.pt"), nets["ttrk"])
+    assert tcli.main(argv[:1] + [str(tmp_path / "t2")] + argv[1:]
+                     + ["--device", "cpu", "--detector_weights", str(tmp_path / "det.pt"),
+                        "--tracker_weights", str(tmp_path / "trk.pt")]) == 0
+    for name, want in zip(("final.json", "tubelets.json", "track.json"), (td, tt, tk)):
+        assert proto_load(str(tmp_path / "t2" / "clip" / name)) == want, name

@@ -4,34 +4,21 @@
 The tiny preset (96×128, R=16, C=4, 6 track slots, chunk 8) with the JAX
 detector and tracker in float32 and the same weights converted to the port
 (at bf16 the two frameworks round at other places; see
-tests/test_torch_fused.py). The bounds are the cross-compilation bound of
+tests/test_torch_fused.py): the nets of tests/torch_fused_common.py. The bounds are the cross-compilation bound of
 ``__graft_entry__.py:271-291``: keep bits exact, boxes within 0.5 px,
 scores within 0.01, path ids differing on < 1% of slots; track segments on
 the same frames.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.torch_fused_common import HW, C, R, f32_nets
 from vdetlib_tpu.data.synth import SynthConfig, box_proto, make_video, write_frames
-from vdetlib_tpu.nn import tracker_net as jtn
-from vdetlib_tpu.nn.backbone import Backbone as JBackbone
-from vdetlib_tpu.nn.backbone import BackboneConfig as JBackboneConfig
-from vdetlib_tpu.nn.detector import Detector as JDetector
-from vdetlib_tpu.nn.detector import DetectorConfig as JDetectorConfig
-from vdetlib_tpu.nn.heads import RCNNHead as JRCNNHead
-from vdetlib_tpu.video.track import init_tracker as j_init_tracker
-from vdetlib_tpu_torch.nn.detector import Detector
-from vdetlib_tpu_torch.nn.presets import detector_preset
-from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, TrackerNet
 from vdetlib_tpu_torch.protos import proto_dump, proto_load
-from vdetlib_tpu_torch.weights import detector_state_from_flax, tracker_state_from_flax
 
-HW = (96, 128)
-C, R, A, CH = 4, 16, 6, 8
+A, CH = 6, 8
 TOL_BOX, TOL_SCORE = 0.5, 0.01
 
 
@@ -40,35 +27,11 @@ def _opts(mod, **kw):
                                        seed_thresh=0.2, conf_thresh=0.3, max_paths=20), **kw})
 
 
-class _F32Detector(JDetector):
-    """The JAX detector with its head in float32 too (same parameter tree)."""
-
-    def setup(self):
-        self.backbone = JBackbone(self.config.backbone)
-        self.head = JRCNNHead(num_classes=self.config.num_classes,
-                              hidden=self.config.head_hidden, dtype=jnp.float32)
-
-
 @pytest.fixture(scope="module")
 def nets():
-    jdet_cfg = JDetectorConfig(
-        num_classes=C, head_hidden=128,
-        backbone=JBackboneConfig(stem_features=16, stage_sizes=(1, 1, 1),
-                                 stage_features=(32, 64, 128), dtype=jnp.float32))
-    jdet = _F32Detector(jdet_cfg)
-    jdp = jax.tree.map(np.asarray, jax.jit(jdet.init)(
-        jax.random.PRNGKey(0), jnp.zeros((1,) + HW + (3,)), jnp.zeros((1, R, 4))))
-    jdp["params"]["head"]["bbox"]["kernel"] = jdp["params"]["head"]["bbox"]["kernel"] * 0.1
-    jtrk_cfg = jtn.TrackerConfig(dtype=jnp.float32)
-    jtrk, jtp = j_init_tracker(jtrk_cfg, image_hw=HW, seed=0)
-    tdet = Detector(detector_preset("tiny", num_classes=C, dtype=torch.float32))
-    tdet.load_state_dict(detector_state_from_flax(jdp))
-    tdet.head.dtype = tdet.head.fc0.dtype = torch.float32
-    ttrk_cfg = TrackerConfig(dtype=torch.float32)
-    ttrk = TrackerNet(ttrk_cfg)
-    ttrk.load_state_dict(tracker_state_from_flax(jax.tree.map(np.asarray, jtp)))
-    return dict(jdet=jdet, jdp=jdp, jtrk=jtrk, jtp=jtp, jcfg=jtrk_cfg,
-                tdet=tdet.eval(), ttrk=ttrk.eval(), tcfg=ttrk_cfg)
+    n = f32_nets()
+    return dict(jdet=n.jdet, jdp=n.jdp, jtrk=n.jtrk, jtp=n.jtp, jcfg=n.jtrk_cfg,
+                tdet=n.tdet, ttrk=n.ttrk, tcfg=n.ttrk_cfg)
 
 
 def _inputs(n_frames, seed):

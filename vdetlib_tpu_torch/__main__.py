@@ -6,6 +6,7 @@ import sys
 TOOLS = {
     "detect": "vdetlib_tpu_torch.cli.detect",
     "frame_nms": "vdetlib_tpu_torch.cli.frame_nms",
+    "pipeline": "vdetlib_tpu_torch.cli.pipeline_tool",
     "stream": "vdetlib_tpu_torch.cli.stream",
     "track": "vdetlib_tpu_torch.cli.track",
 }

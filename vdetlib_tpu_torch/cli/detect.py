@@ -2,8 +2,10 @@
 
 Counterpart of ``python -m vdetlib_tpu detect``, with the same flags plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs on the CPU with the
-kernels' plain versions). Weights are random, drawn from ``--seed``: loading
-a checkpoint (``--weights``) is not ported yet (ROADMAP.md, Queue 1).
+kernels' plain versions). ``--weights`` loads a checkpoint of the port
+(``pipeline/checkpoint.py``; convert a JAX one with
+``scripts/convert_orbax_checkpoint.py``); without it the weights are random,
+drawn from ``--seed``.
 ``--pyramid`` scales other than 1.0 resize the frames on the device.
 """
 
@@ -17,7 +19,8 @@ def main(argv=None) -> int:
     p.add_argument("vid_file")
     p.add_argument("box_file")
     p.add_argument("output")
-    p.add_argument("--weights", default=None, help="detector checkpoint (not ported yet)")
+    p.add_argument("--weights", default=None,
+                   help="detector checkpoint (pipeline/checkpoint.py format)")
     p.add_argument("--model", default="base", choices=["base", "small", "tiny"])
     p.add_argument("--num_classes", type=int, default=31)
     p.add_argument("--image_hw", type=int, nargs=2, default=[240, 320])
@@ -31,10 +34,6 @@ def main(argv=None) -> int:
     p.add_argument("--overwrite", action="store_true")
     p.add_argument("--device", default="cuda", help="torch device to run on")
     args = p.parse_args(argv)
-    if args.weights:
-        raise NotImplementedError(
-            "loading detector checkpoints is not ported yet (ROADMAP.md Queue 1, item 1)"
-        )
 
     from vdetlib_tpu_torch.protos import proto_dump, proto_exists, proto_load
 
@@ -46,10 +45,13 @@ def main(argv=None) -> int:
 
     from vdetlib_tpu_torch import weights
     from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_params
     from vdetlib_tpu_torch.video.detect import DetectOptions, det_vid
 
     model = weights.init_detector(detector_preset(args.model, num_classes=args.num_classes),
                                   torch.Generator().manual_seed(args.seed), device=args.device)
+    if args.weights:
+        load_params(args.weights, model)
     vid = proto_load(args.vid_file)
     boxes = proto_load(args.box_file)
     opts = DetectOptions(

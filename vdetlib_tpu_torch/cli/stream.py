@@ -13,9 +13,9 @@ writes:
 
 Inputs: NAME.vid.json (+ NAME.box.json proposals next to it, or
 --box_suffix), as positional paths or line by line on stdin (--stdin).
-Weights are random, drawn from --seed: loading checkpoints
-(--detector_weights, --tracker_weights) is not ported yet (ROADMAP.md,
-Queue 1).
+--detector_weights / --tracker_weights load checkpoints of the port
+(pipeline/checkpoint.py); without them the weights are random, drawn from
+--seed.
 """
 
 from __future__ import annotations
@@ -54,10 +54,6 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device to run on")
     args = p.parse_args(argv)
-    if args.detector_weights or args.tracker_weights:
-        raise NotImplementedError(
-            "loading detector/tracker checkpoints is not ported yet (ROADMAP.md Queue 1, item 1)"
-        )
 
     import numpy as np
     import torch
@@ -65,6 +61,7 @@ def main(argv=None) -> int:
     from vdetlib_tpu_torch.data.loader import FrameLoader, load_frame
     from vdetlib_tpu_torch.nn.presets import detector_preset
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_params
     from vdetlib_tpu_torch.protos import proto_dump, proto_exists, proto_load
     from vdetlib_tpu_torch.protos.accessors import frame_path_at
     from vdetlib_tpu_torch.protos.arrays import box_proto_to_arrays
@@ -79,6 +76,10 @@ def main(argv=None) -> int:
     trk_cfg = TrackerConfig()
     trk_model = init_tracker(trk_cfg, torch.Generator().manual_seed(args.seed + 1),
                              device=args.device)
+    if args.detector_weights:
+        load_params(args.detector_weights, det_model)
+    if args.tracker_weights:
+        load_params(args.tracker_weights, trk_model)
     opts = StreamOptions(
         chunk=args.chunk,
         max_rois=args.max_rois,

@@ -2,9 +2,10 @@
 
 Counterpart of ``python -m vdetlib_tpu track``, with the same flags plus
 ``--device`` (default ``cuda``, where each round's scan is one launch of
-kernel F; ``--device cpu`` runs the plain loop). Weights are random, drawn
-from ``--seed``: loading a checkpoint (``--weights``) and detection snapping
-(``--snap_weight`` > 0) are not ported yet (ROADMAP.md, Queue 1).
+kernel F; ``--device cpu`` runs the plain loop). ``--weights`` loads a
+checkpoint of the port (``pipeline/checkpoint.py``); without it the weights
+are random, drawn from ``--seed``. Detection snapping (``--snap_weight`` > 0)
+is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ def main(argv=None) -> int:
     p.add_argument("vid_file")
     p.add_argument("det_file")
     p.add_argument("output")
-    p.add_argument("--weights", default=None, help="TrackerNet checkpoint (not ported yet)")
+    p.add_argument("--weights", default=None,
+                   help="TrackerNet checkpoint (pipeline/checkpoint.py format)")
     p.add_argument("--max_tracks", type=int, default=32)
     p.add_argument("--anchors_per_round", type=int, default=8)
     p.add_argument("--anchor_thresh", type=float, default=0.3)
@@ -32,10 +34,6 @@ def main(argv=None) -> int:
     p.add_argument("--overwrite", action="store_true")
     p.add_argument("--device", default="cuda", help="torch device to run on")
     args = p.parse_args(argv)
-    if args.weights:
-        raise NotImplementedError(
-            "loading tracker checkpoints is not ported yet (ROADMAP.md Queue 1, item 1)"
-        )
 
     from vdetlib_tpu_torch.protos import proto_dump, proto_exists, proto_load
 
@@ -47,12 +45,15 @@ def main(argv=None) -> int:
 
     from vdetlib_tpu_torch import weights
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_params
     from vdetlib_tpu_torch.video.track import TrackOptions, track_from_det
 
     vid = proto_load(args.vid_file)
     det = proto_load(args.det_file)
     cfg = TrackerConfig()
     model = weights.init_tracker(cfg, torch.Generator().manual_seed(args.seed), device=args.device)
+    if args.weights:
+        load_params(args.weights, model)
     opts = TrackOptions(
         max_tracks=args.max_tracks,
         anchors_per_round=args.anchors_per_round,

@@ -195,6 +195,8 @@ class FusedPipeline:
             raise NotImplementedError(
                 "snapping and tubelet boxes are not ported yet (ROADMAP.md, Queue 1)"
             )
+        if trk_cfg.template_eta > 0.0:  # track_batch's refusal, before any work
+            raise NotImplementedError("EMA templates are not ported yet (ROADMAP.md, Queue 1)")
         self.det_model = det_model
         self.trk_model = trk_model
         self.trk_cfg = trk_cfg

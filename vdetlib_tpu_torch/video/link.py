@@ -1,12 +1,29 @@
 """Seq-NMS paths as tubelets — counterpart of ``vdetlib_tpu/video/link.py``.
 
-Only the numpy ``tubelets_from_path_ids`` is ported here (the JAX module
-imports jax at load time); the staged link stage is not ported yet.
+The numpy ``tubelets_from_path_ids`` and the stage's options
+(``LinkOptions``, which the pipeline config tree reads) are ported here; the
+staged link stage (``seq_nms_video``) is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass(frozen=True)
+class LinkOptions:
+    """Same fields and defaults as the JAX ``LinkOptions``."""
+
+    link_thresh: float = 0.5
+    suppress_thresh: float = 0.3
+    max_paths: int = 100
+    rescore: str = "avg"  # avg | max
+    max_boxes: int = 64
+    num_classes: int = 31
+    min_score: float = 0.0  # drop rescored entries at/below this
+    backend: str = "device"  # device | host
 
 
 def tubelets_from_path_ids(boxes, out_scores, path_ids, fids, video: str,

@@ -3,15 +3,40 @@
 Detections are matched to tracks by IoU per frame; each (track, class) gets
 the top-k mean of its matched detection scores over the tubelet, and each
 detection takes the best statistic among the tracks matching it.
+``RescoreOptions`` holds the stage's options (the pipeline config tree reads
+them); the staged stage (``tubelet_rescore``) is not ported yet (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from vdetlib_tpu_torch.geometry.boxes import pairwise_iou
 
-__all__ = ["rescore_arrays"]
+__all__ = ["RescoreOptions", "rescore_arrays"]
+
+
+@dataclass(frozen=True)
+class RescoreOptions:
+    """Same fields and defaults as the JAX ``RescoreOptions``."""
+
+    match_thresh: float = 0.5  # det ↔ track-box IoU match
+    top_ratio: float = 0.5  # statistic = mean of the top this-fraction scores
+    boost: str = "max"  # det new score: max(score, stat) | "mean"
+    bg_decay: float = 1.0  # multiplier for dets on no tubelet (1.0 = keep)
+    # track-quality gate: a track boosts only if dets match it on at least
+    # this fraction of its live frames (0.0 = off)
+    min_matched_frac: float = 0.0
+    # length prior: the top-k mean's denominator is at least this many frames
+    stat_floor: int = 0
+    max_boxes: int = 64
+    num_classes: int = 31
+    max_tracks: int = 64
+    # tubelet boxes as detections: not ported yet (FusedPipeline raises)
+    tubelet_boxes: bool = False
 
 
 def rescore_arrays(det_boxes, det_scores, det_mask, trk_boxes, trk_mask, match_thresh: float,
