@@ -16,8 +16,9 @@ Phases, each synchronised and each fatal on failure:
    device time per launch (torch.profiler's CUPTI records of the kernels
    named ``<name>_kernel``) and the wrapper's host time per call:
    A, flow level: 32, 63, 95 and 255 pairs of 60×80 bf16 (the stream's
-   chunk, the fused slice's buckets, a 256-frame video), box-shift
-   tolerance mean < 0.05 px, max < 0.5 px at each; B, grouped NMS: 256
+   chunk, the fused slice's buckets, a 256-frame video) and 95 pairs of
+   90×120 (the staged MGP over phase 8's 96 native 360×480 frames),
+   box-shift tolerance mean < 0.05 px, max < 0.5 px at each; B, grouped NMS: 256
    frames × 192 slots with 30 class groups (the fused dedup), and 32 and
    960 problems of 192 slots with one group (the stream's MGP dedup for
    one class and for a chunk's 32 frames × 30 classes); C, batched NMS:
@@ -37,13 +38,20 @@ Phases, each synchronised and each fatal on failure:
    peaks <= 1e-4, alive equal), a 16-step rollout (alive equal, live boxes
    < 0.1 px), both again at search windows of Q = 12 and 20 bins, and the
    48-step round (printed, not gated; timed in ms a round and µs a step,
-   with its registers from the ptxas log and its shared memory);
+   with its registers from the ptxas log and its shared memory); then the
+   NMS routes around B's and D's limits against the CPU's plain versions:
+   ``nms_grouped`` at 256 frames × 576 slots in 30 groups takes the
+   sort-free fixpoint and launches no B (at 192 slots it launches B), and
+   ``batched_nms`` over 2 problems of 8,200 slots takes it and launches no
+   D; keep sets identical;
 4. reference: the tiny float32 fused pipeline (its tracker scan is kernel F
    on the card) and the tiny float32 stream on the card equal the same runs
    on the CPU (plain kernel versions) within the port's cross-framework
    bounds (bool fields exact, path ids < 1% of slots, boxes 0.5 px, scores
-   0.01; stream track segments on the same frames); the tiny stream also
-   through the host engine at ``track_stride`` 2;
+   0.01; stream track segments on the same frames); the tiny pipeline
+   again at ``mgp_window`` 4 with 64 detections a frame (a 576-slot
+   dedup: no launch of B); the tiny stream also through the host engine at
+   ``track_stride`` 2;
 5. fused slice: the ``base`` detector (C=31) and the default tracker with
    seeded random weights run ``pad_snippet`` → ``make_fused_pipeline`` →
    ``fused_to_protos`` at 240×320 over three synthetic videos; kernels A, B
@@ -100,12 +108,27 @@ Phases, each synchronised and each fatal on failure:
    device memory. The ``pipeline`` tool itself reads JPEG frames, which
    needs ``cv2`` (absent on the card's machine), so the tool runs in the
    CPU tests (tests/test_torch_fused_runner.py), not here.
+11. staged chain: phase 8's det_proto and track_proto over its 96 native
+   360×480 frames, in memory, through the staged stages at the tools'
+   defaults with phase 8's base detector (rebuilt from its seed): ``mgp``
+   (window 1, "fastest", host dedup; kernel A exactly twice, forward and on
+   the flipped frames), ``perturb_rescore_track_proto`` (8 perturbations,
+   seed 0, 32 frames a batch), ``tubelet_rescore`` on the perturbed
+   track_proto, and ``seq_nms_video`` with the ``device`` and the ``host``
+   backends (the same paths, boxes and entries; scores within 1e-5). Then
+   ``mgp``, ``tubelet_rescore`` and ``seq_nms_video`` again on the CPU, each
+   fed the card stage's input: the same (frame, class) entries, boxes
+   within 0.5 px, scores within 0.01, the same seq-NMS paths. A one-frame
+   video through ``mgp`` launches no A and equals the CPU. Prints each
+   stage's wall, A's launches and its device ms at the MGP shape (phase 3),
+   and the peak device memory.
 
-Around each of phases 5–8 the kernels' launch counters are zeroed just
-before and read just after; a kernel's ``launches`` in the record is the
-count from its own path (A, B: fused slice; C: stream; D: frame NMS; E, F:
-staged path). B–E are then ranked by their device loss over phases 5–8,
-launches × (device ms − bound ms).
+Around each of phases 5–8 and 11 the kernels' launch counters are zeroed
+just before and read just after; a kernel's ``launches`` in the record is
+the count from its own path (A, B: fused slice; C: stream; D: frame NMS; E,
+F: staged path); A's record also holds ``launches_staged_chain`` (phase 11)
+and its ``mgp_shape`` times. B–E are then ranked by their device loss over
+phases 5–8, launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -181,28 +204,46 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str | None = None):
-    """Device milliseconds per call of ``fn``, from torch.profiler's CUPTI
-    records over ``iters`` calls after one warm-up: (the kernels whose name
-    contains ``kernel``, every other device activity: kernels, copies,
-    fills). With ``kernel`` None every activity counts in the first."""
+PROFILE_ATTEMPTS = 3
+
+
+def device_records(fn, iters: int, kernel: str | None = None) -> list:
+    """(name, µs) of every device activity (kernels, copies, fills) of
+    ``iters`` calls of ``fn``, from torch.profiler's CUPTI records.
+
+    A trace now and then comes back without the records of a kernel that
+    ran (once in the smoke run's ~20 traces on the H100, at a shape whose
+    other traces held them): while no record's name contains ``kernel``
+    (with ``kernel`` None: while there is no device record at all) the
+    calls are traced again, up to ``PROFILE_ATTEMPTS`` times, and the retry
+    is printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        if any(kernel is None or kernel in name for name, _ in recs):
+            return recs
+        log(f"profiler: trace {attempt} of {iters} calls holds no device record of "
+            f"{kernel or 'the call'} ({len(recs)} device records); tracing again")
+    raise AssertionError(f"the profiler saw no device time for {kernel or 'the call'}")
+
+
+def device_ms(fn, iters: int, kernel: str | None = None):
+    """Device milliseconds per call of ``fn`` over ``iters`` calls after one
+    warm-up (``device_records``): (the kernels whose name contains
+    ``kernel``, every other device activity: kernels, copies, fills). With
+    ``kernel`` None every activity counts in the first."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    own = other = 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if kernel is None or kernel in e.name:
-            own += e.time_range.elapsed_us()
-        else:
-            other += e.time_range.elapsed_us()
+    recs = device_records(fn, iters, kernel)
+    own = sum(us for name, us in recs if kernel is None or kernel in name)
+    other = sum(us for name, us in recs if not (kernel is None or kernel in name))
     assert own > 0, f"the profiler saw no device time for {kernel or 'the call'}"
     return own / iters / 1e3, other / iters / 1e3
 
@@ -368,17 +409,21 @@ def greedy_iou_count(boxes, scores, valid, thresh, keep) -> int:
     return total
 
 
-def flow_case(dev, times):
-    """Kernel A against its plain version on the quarter-res gray pairs of a
-    256-frame video (the first P pairs), at the pair counts its paths launch
-    and at 255: box shifts within mean < 0.05, max < 0.5 full-res px at
-    every P; timed by CUDA events at every P, the plain version at 255."""
+def quarter_gray(frames_u8, dev):
+    """The "fastest" preset's bf16 quarter-resolution gray frames on ``dev``."""
+    from vdetlib_tpu_torch.kernels import flow as tflow
+
+    frames = torch.from_numpy(frames_u8).to(dev)
+    return tflow._avg_pool2(tflow._avg_pool2(tflow.to_gray(frames))).to(torch.bfloat16)
+
+
+def flow_check(label, gray, gt_boxes, P):
+    """Kernel A over the first P pairs of ``gray`` against its plain version:
+    the box shifts of ``gt_boxes`` (K, T, 4, full-res) within mean < 0.05,
+    max < 0.5 full-res px; timed (``kernel_times``) beside its bound."""
     from vdetlib_tpu_torch.kernels import flow as tflow
     from vdetlib_tpu_torch.kernels import flow_level as kl
 
-    sv = synth(256, seed=0)
-    frames = torch.from_numpy(sv.frames).to(dev)
-    gray = tflow._avg_pool2(tflow._avg_pool2(tflow.to_gray(frames))).to(torch.bfloat16)
     scale = tflow.flow_coord_scale("fastest")
     search, radius = 5, 3  # flow_level's defaults, as the "fastest" preset calls it
     # operations per pixel and shift: the squared difference (2), the
@@ -386,36 +431,60 @@ def flow_case(dev, times):
     # the online soft-argmin (min, 2 sub, 2 mul, 2 exp, den: mul + add, fx
     # and fy: 2 mul + add each = 15)
     per_shift = 2 + 2 * (2 * radius) + 1 + 15
+    i1, i2 = gray[:P].contiguous(), gray[1:P + 1].contiguous()
+    got = kl.flow_level(i1, i2)
+    want = kl._flow_level(i1, i2)
+    torch.cuda.synchronize()
+    boxes = torch.from_numpy(gt_boxes[:, :P].transpose(1, 0, 2).copy()).to(gray.device)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=gray.device)
+    d = (tflow.mean_flow_in_boxes(got, boxes * scale, valid)
+         - tflow.mean_flow_in_boxes(want, boxes * scale, valid)).abs() / scale  # full-res px
+    err, mean = float(d.max()), float(d.mean())
+    field_err = float((got - want).abs().max())
+    t = kernel_times(lambda: kl.flow_level(i1, i2), "flow_level_kernel", iters=20)
+    _, Hq, Wq = i1.shape
+    t["bound_ms"], t["bound_by"] = bound(i1.numel() * 2 * 2 + got.numel() * 4,
+                                         P * Hq * Wq * (2 * search + 1) ** 2 * per_shift)
+    log(f"kernel flow_level {label} P={P} {tuple(i1.shape)} bf16: {fmt_times(t)} (bound "
+        f"{t['bound_ms']:.6f} by {t['bound_by']}); box-shift err mean {mean:.6f} max {err:.6f} "
+        f"px (tolerance mean < 0.05, max < 0.5); field max |diff| {field_err:.6f} cells")
+    assert math.isfinite(err) and mean < 0.05 and err < 0.5, f"flow kernel disagrees at P={P}"
+    t["max_abs_err"] = err
+    return t, (i1, i2)
+
+
+def flow_case(dev, times):
+    """Kernel A against its plain version on the quarter-res gray pairs of a
+    256-frame video (the first P pairs), at the pair counts its paths launch
+    and at 255, and at the staged MGP's shape (95 pairs of 90×120: the 96
+    native 360×480 frames of phases 8 and 11): box shifts within mean <
+    0.05, max < 0.5 full-res px at every P; timed at every shape, the plain
+    version at 255."""
+    from vdetlib_tpu_torch.kernels import flow_level as kl
+
+    sv = synth(256, seed=0)
+    gray = quarter_gray(sv.frames, dev)
     ms_by_p, dev_by_p, worst = {}, {}, 0.0
     for P in FLOW_PAIRS:
-        i1, i2 = gray[:P].contiguous(), gray[1:P + 1].contiguous()
-        got = kl.flow_level(i1, i2)
-        want = kl._flow_level(i1, i2)
-        torch.cuda.synchronize()
-        boxes = torch.from_numpy(sv.gt_boxes[:, :P].transpose(1, 0, 2).copy()).to(dev)
-        valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
-        d = (tflow.mean_flow_in_boxes(got, boxes * scale, valid)
-             - tflow.mean_flow_in_boxes(want, boxes * scale, valid)).abs() / scale  # full-res px
-        err, mean = float(d.max()), float(d.mean())
-        field_err = float((got - want).abs().max())
-        t = kernel_times(lambda: kl.flow_level(i1, i2), "flow_level_kernel", iters=20)
-        _, Hq, Wq = i1.shape
-        b_ms, b_by = bound(i1.numel() * 2 * 2 + got.numel() * 4,
-                           P * Hq * Wq * (2 * search + 1) ** 2 * per_shift)
-        log(f"kernel flow_level P={P} {tuple(i1.shape)} bf16: {fmt_times(t)} (bound {b_ms:.6f} "
-            f"by {b_by}); box-shift err mean {mean:.6f} max {err:.6f} px (tolerance mean "
-            f"< 0.05, max < 0.5); field max |diff| {field_err:.6f} cells")
-        assert math.isfinite(err) and mean < 0.05 and err < 0.5, f"flow kernel disagrees at P={P}"
+        t, pair = flow_check("video", gray, sv.gt_boxes, P)
         ms_by_p[P], dev_by_p[P] = t["ms"], t["device_ms"]
-        worst = max(worst, err)
-    plain_ms = cuda_ms(lambda: kl._flow_level(i1, i2), iters=5)
+        worst = max(worst, t["max_abs_err"])
+    plain_ms = cuda_ms(lambda: kl._flow_level(*pair), iters=5)
+    native = staged_video(NATIVE_HW)
+    m, _ = flow_check("MGP", quarter_gray(native.frames, dev), native.gt_boxes, STAGED_T - 1)
+    worst = max(worst, m["max_abs_err"])
+    mgp_shape = {k: m[k] for k in ("ms", "device_ms", "host_us", "bound_ms", "bound_by",
+                                   "max_abs_err")}
+    mgp_shape["shape"] = [STAGED_T - 1, NATIVE_HW[0] // 4, NATIVE_HW[1] // 4]
     times.append(f"flow_level kernel {t['ms']:.4f} device {t['device_ms']:.5f} plain "
-                 f"{plain_ms:.4f} bound {b_ms:.4f} (P={P}; by P: wall {ms_by_p}, device {dev_by_p})")
+                 f"{plain_ms:.4f} bound {t['bound_ms']:.4f} (P={P}; by P: wall {ms_by_p}, "
+                 f"device {dev_by_p}; MGP {tuple(mgp_shape['shape'])}: wall {m['ms']:.4f}, "
+                 f"device {m['device_ms']:.5f}, bound {m['bound_ms']:.6f})")
     return dict(name="flow_level", route="cuda", source="vdetlib_tpu_torch/csrc/flow_level.cu",
                 replaces="vdetlib_tpu/kernels/flow_pallas.py:104", max_abs_err=worst, ms=t["ms"],
                 device_ms=t["device_ms"], host_us=t["host_us"], ms_by_p=ms_by_p,
-                device_ms_by_p=dev_by_p, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                device_ms_by_p=dev_by_p, mgp_shape=mgp_shape, plain_ms=plain_ms,
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
 
 
 NMS_THRESH = 0.3  # the engines' default nms_thresh
@@ -542,15 +611,9 @@ def frame_nms_problems(T, max_boxes, seed):
 
 def device_kernels(fn) -> list:
     """Names of the device activities (kernels, copies, fills) of one call of ``fn``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [name for name, _ in device_records(fn, 1)]
 
 
 def sorted_bound(args, ious):
@@ -625,6 +688,47 @@ def sorted_case(dev, times):
                       device_kernels_per_call=kernels_per_call)
 
 
+def nms_routes_case(dev, records):
+    """The NMS routes around B's and D's limits, on the card against the
+    CPU's plain versions: ``nms_grouped`` at 256 frames × 576 slots in 30
+    groups (the fused dedup at ``mgp_window`` 4) runs the sort-free fixpoint
+    in torch ops and launches no B, at 192 slots it launches B once;
+    ``batched_nms`` over 2 problems of 8,200 slots (above D's 8,192) runs
+    the fixpoint and launches no D. Keep sets identical; walls printed."""
+    from vdetlib_tpu_torch.kernels import nms as knms
+    from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel
+    from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
+
+    cases = (("grouped", knms.nms_grouped, 256, 576, 30),
+             ("grouped", knms.nms_grouped, 256, 192, 30),
+             ("batched", knms.batched_nms, 2, 8200, 0))
+    for i, (kind, fn, Bn, N, groups) in enumerate(cases):
+        arrs = nms_problem(Bn, N, seed=40 + i, groups=groups)
+        cpu = [torch.from_numpy(a) for a in arrs]
+        args = [a.to(dev) for a in cpu]
+        before = (nms_grouped_kernel.launches, nms_sorted_kernel.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = fn(*args, NMS_THRESH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = (nms_grouped_kernel.launches - before[0], nms_sorted_kernel.launches - before[1])
+        want = fn(*cpu, NMS_THRESH)
+        n_diff = int((keep.cpu() != want).sum())
+        assert n_diff == 0, f"{kind} NMS at ({Bn}, {N}) on the card differs from the CPU"
+        assert 0 < int(want.sum()) < int(cpu[2].sum()), f"({Bn}, {N}) suppresses nothing"
+        route = knms.grouped_route(N) if kind == "grouped" else knms.batched_route(N)
+        expect = (1, 0) if route == "kernel" else (0, 0)
+        assert launched == expect, f"{kind} NMS at {N} slots launched (B, D) {launched}"
+        log(f"route: {kind} NMS at ({Bn}, {N}{f', {groups} groups' if groups else ''}) takes "
+            f"'{route}' on the card: keep identical to the CPU's plain version ({int(want.sum())} "
+            f"of {int(cpu[2].sum())} valid kept), launches (B, D) {launched}, wall "
+            f"{wall * 1e3:.1f} ms")
+        rec = records["nms_sorted" if kind == "batched" else "nms_grouped"]
+        rec.setdefault("routes", {})[f"{Bn}x{N}"] = dict(route=route, wall_ms=wall * 1e3,
+                                                          n_diff=n_diff, launched=launched)
+
+
 def phase_kernels(dev):
     """Kernels vs plain versions at their paths' shapes → kernel records."""
     times = []
@@ -632,6 +736,7 @@ def phase_kernels(dev):
                "nms_batched": batched_case(dev, times), "nms_sorted": sorted_case(dev, times),
                "resize_normalize": resize_case(dev, times),
                "track_scan": track_scan_case(dev, times)}
+    nms_routes_case(dev, records)
     log("times (ms a call; wall by CUDA events, device by the profiler; bound from the "
         "H100's published peaks): " + "; ".join(times))
     return records
@@ -901,14 +1006,15 @@ def tiny_models(dev, seed=0):
     return det, trk, trk_cfg
 
 
-def tiny_pipeline(dev, seed=0):
-    """The tiny fused pipeline at 96×128 in float32 (detector and tracker) on ``dev``."""
+def tiny_pipeline(dev, seed=0, **kw):
+    """The tiny fused pipeline at 96×128 in float32 (detector and tracker) on
+    ``dev``; ``kw`` sets other ``FusedConfig`` fields."""
     from vdetlib_tpu_torch.pipeline.fused import FusedConfig, make_fused_pipeline
 
     det, trk, trk_cfg = tiny_models(dev, seed)
-    cfg = FusedConfig(image_hw=(96, 128), detect_batch=8, feat_batch=8, anchors_per_round=4,
-                      max_tracks=8, max_paths=16, det_budget=24, out_budget=24,
-                      score_thresh=0.2, anchor_thresh=0.26)
+    cfg = FusedConfig(**{**dict(image_hw=(96, 128), detect_batch=8, feat_batch=8,
+                                anchors_per_round=4, max_tracks=8, max_paths=16, det_budget=24,
+                                out_budget=24, score_thresh=0.2, anchor_thresh=0.26), **kw})
     return make_fused_pipeline(det, trk, trk_cfg, cfg)
 
 
@@ -993,6 +1099,25 @@ def phase_reference(dev):
     assert int(want.n_tracks) >= 1 and bool(want.det_mask.any())
     log(f"reference: tiny f32 pipeline on {dev} == CPU within bounds "
         f"(worst float diff {worst:.6f}, n_tracks {int(want.n_tracks)})")
+
+    # mgp_window 4 at the default 64-detection budget: the dedup's 64 x 9 =
+    # 576 slots are above kernel B's 512, so nms_grouped takes the sort-free
+    # fixpoint in torch ops on the card (as JAX takes its XLA fixpoint)
+    from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel
+
+    kw = dict(mgp_window=4, det_budget=64)
+    with torch.no_grad():
+        want = tiny_pipeline("cpu", **kw)(*(torch.from_numpy(a) for a in (frames, rois)), None,
+                                          torch.from_numpy(roi_mask))
+        before = nms_grouped_kernel.launches
+        got = tiny_pipeline(dev, **kw)(*(torch.from_numpy(a).to(dev) for a in (frames, rois)),
+                                       None, torch.from_numpy(roi_mask).to(dev))
+    torch.cuda.synchronize()
+    assert nms_grouped_kernel.launches == before, "kernel B launched above its 512 slots"
+    worst = compare_outputs(got, want)
+    assert int(want.n_tracks) >= 1 and bool(want.det_mask.any())
+    log(f"reference: tiny f32 pipeline at mgp_window 4 (576 dedup slots, no B launch) on {dev} "
+        f"== CPU within bounds (worst float diff {worst:.6f}, n_tracks {int(want.n_tracks)})")
 
     # 1.5 chunks of 8: a carried chunk, a partial one and a backtrack. Not
     # longer: every stage agrees to its last bits (class probabilities 6e-7,
@@ -1687,7 +1812,7 @@ def phase_staged(dev, kernels, profile_dir=None):
         profile_one(lambda: track_from_det(trk, vid, det_proto, trk_cfg, opts,
                                            frames_u8=sv.frames),
                     profile_dir, "profile_staged.txt", "track.")
-    return launches
+    return launches, {"vid": vid, "det": det_proto, "track": track}
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1879,6 +2004,150 @@ def phase_sweep(dev, kernels, ctx, slice_fps, card):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def timed(walls, name, fn, peaks=None):
+    """``fn()`` timed on the host clock between two synchronisations; with
+    ``peaks`` also its peak device memory."""
+    torch.cuda.synchronize()
+    if peaks is not None:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    if peaks is not None:
+        peaks[name] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def compare_det_protos(name, got, want, b_tol=0.5, s_tol=0.01):
+    """The same (frame, classes) entry sequence; boxes within ``b_tol`` px and
+    scores within ``s_tol``. Returns the worst (box, score) differences."""
+    g, w = got["detections"], want["detections"]
+    assert len(g) == len(w) > 0, f"{name}: {len(g)} entries against {len(w)}"
+    assert [(d["frame"], [e["class_index"] for e in d["scores"]]) for d in g] == \
+        [(d["frame"], [e["class_index"] for e in d["scores"]]) for d in w], \
+        f"{name}: the (frame, class) entries differ"
+    gb, wb = np.array([d["bbox"] for d in g]), np.array([d["bbox"] for d in w])
+    gs = np.array([e["score"] for d in g for e in d["scores"]])
+    ws = np.array([e["score"] for d in w for e in d["scores"]])
+    assert np.isfinite(gb).all() and np.isfinite(gs).all(), f"{name}: non-finite"
+    db, ds = float(np.abs(gb - wb).max()), float(np.abs(gs - ws).max())
+    assert db <= b_tol and ds <= s_tol, f"{name}: boxes differ by {db}, scores by {ds}"
+    return db, ds
+
+
+def compare_tubelets(name, got, want, s_tol=0.01):
+    """Seq-NMS tubelets: the same paths (each track's frames, class and
+    boxes), scores within ``s_tol``. Returns the worst score difference."""
+    assert len(got["tracks"]) == len(want["tracks"]) > 0, f"{name}: tubelet counts differ"
+    ds = 0.0
+    for a, b in zip(got["tracks"], want["tracks"]):
+        assert [(e["frame"], e["class_index"], e["bbox"]) for e in a] == \
+            [(e["frame"], e["class_index"], e["bbox"]) for e in b], f"{name}: paths differ"
+        ds = max(ds, max(abs(x["score"] - y["score"]) for x, y in zip(a, b)))
+    assert ds <= s_tol, f"{name}: tubelet scores differ by {ds}"
+    return ds
+
+
+def phase_staged_chain(dev, kernels, ctx, flow_rec):
+    """The staged chain after phase 8's detect → track, at the tools'
+    defaults with phase 8's base detector (rebuilt from its seed) over its 96
+    native 360×480 frames, in memory: ``mgp`` (window 1, "fastest", host
+    dedup: kernel A twice), ``perturb_rescore_track_proto`` (8
+    perturbations, seed 0, 32 frames a batch) on phase 8's track_proto,
+    ``tubelet_rescore`` and ``seq_nms_video`` with the ``device`` and the
+    ``host`` backends (the same paths). Then ``mgp``, ``tubelet_rescore``
+    and ``seq_nms_video`` again on the CPU, each fed the card stage's input:
+    the same entries, boxes within 0.5 px, scores within 0.01, the same
+    seq-NMS paths. A one-frame video through ``mgp`` launches no A and
+    equals the CPU."""
+    from vdetlib_tpu_torch.protos.accessors import frame_ids
+    from vdetlib_tpu_torch.video.link import LinkOptions, seq_nms_video
+    from vdetlib_tpu_torch.video.mgp import MGPOptions, mgp
+    from vdetlib_tpu_torch.video.perturb import PerturbOptions, perturb_rescore_track_proto
+    from vdetlib_tpu_torch.video.rescore import RescoreOptions, tubelet_rescore
+
+    det_model = base_models(dev)[0]
+    sv = staged_video(NATIVE_HW)
+    vid, det_proto, track = ctx["vid"], ctx["det"], ctx["track"]
+    fids = frame_ids(vid)
+    mopts, popts, ropts, lopts = MGPOptions(), PerturbOptions(), RescoreOptions(), LinkOptions()
+    assert (mopts.window, mopts.flow_preset, mopts.run_nms, mopts.num_classes) == \
+        (1, "fastest", True, C)
+    assert (popts.num_perturb, popts.seed) == (8, 0)
+
+    zero_counts(kernels)
+    walls, peaks = {}, {}
+    mdet = timed(walls, "mgp", lambda: mgp(vid, det_proto, mopts, frames_u8=sv.frames,
+                                           device=dev), peaks)
+    a_mgp = kernels["flow_level"].launches
+    assert a_mgp == 2, f"mgp launched kernel A {a_mgp} times, not twice"
+    ptrack = timed(walls, "perturb", lambda: perturb_rescore_track_proto(
+        det_model, sv.frames, track, fids, popts, batch_frames=32), peaks)
+    score_proto, rdet = timed(walls, "rescore", lambda: tubelet_rescore(
+        vid, mdet, ptrack, ropts, device=dev), peaks)
+    ddet, dtub = timed(walls, "seq_nms device", lambda: seq_nms_video(
+        vid, rdet, lopts, device=dev), peaks)
+    hdet, htub = timed(walls, "seq_nms host", lambda: seq_nms_video(
+        vid, rdet, dataclasses.replace(lopts, backend="host")), peaks)
+    launches = read_counts(kernels, "staged chain", ("flow_level",))
+    assert sum(launches.values()) == 2, "the staged chain launched more than kernel A twice"
+
+    # what came out: MGP added copies, every live track box got perturbation
+    # scores, the statistics reached the detections, seq-NMS found paths
+    assert len(mdet["detections"]) > 0
+    n_boxes = sum(len(t) for t in track["tracks"])
+    n_pert = sum("perturb_scores" in e for t in ptrack["tracks"] for e in t)
+    assert n_pert == n_boxes > 0, f"{n_pert} of {n_boxes} track boxes carry perturb_scores"
+    assert all(math.isfinite(v) for t in ptrack["tracks"] for e in t
+               for v in e["bbox"] + [e["perturb_scores"][0]["score"]])
+    assert any(tr["scores"] for tr in score_proto["tracks"]), "no tubelet statistic"
+    db_backends, ds_backends = compare_det_protos("seq_nms device vs host", ddet, hdet, 0.0, 1e-5)
+    compare_tubelets("seq_nms device vs host", dtub, htub, 1e-5)
+
+    # the CPU, fed each card stage's input
+    cpu_walls = {}
+    errs = {"mgp": compare_det_protos("mgp card vs CPU", mdet, timed(
+        cpu_walls, "mgp", lambda: mgp(vid, det_proto, mopts, frames_u8=sv.frames, device="cpu")))}
+    cpu_sp, cpu_rdet = timed(cpu_walls, "rescore",
+                             lambda: tubelet_rescore(vid, mdet, ptrack, ropts, device="cpu"))
+    errs["rescore"] = compare_det_protos("rescore card vs CPU", rdet, cpu_rdet)
+    assert [[e["class_index"] for e in t["scores"]] for t in score_proto["tracks"]] == \
+        [[e["class_index"] for e in t["scores"]] for t in cpu_sp["tracks"]]
+    cpu_ddet, cpu_dtub = timed(cpu_walls, "seq_nms device",
+                               lambda: seq_nms_video(vid, rdet, lopts, device="cpu"))
+    errs["seq_nms"] = compare_det_protos("seq_nms card vs CPU", ddet, cpu_ddet)
+    errs["tubelets"] = compare_tubelets("seq_nms card vs CPU", dtub, cpu_dtub)
+
+    # a one-frame video: no flow pair, no launch of A
+    vid1 = dict(vid, frames=vid["frames"][:1])
+    det1 = dict(det_proto, detections=[d for d in det_proto["detections"]
+                                       if d["frame"] == fids[0]])
+    zero_counts(kernels)
+    one = mgp(vid1, det1, mopts, frames_u8=sv.frames[:1], device=dev)
+    assert kernels["flow_level"].launches == 0, "mgp launched kernel A on a one-frame video"
+    compare_det_protos("mgp of one frame, card vs CPU", one,
+                       mgp(vid1, det1, mopts, frames_u8=sv.frames[:1], device="cpu"))
+
+    log(f"staged chain on {len(fids)} native {NATIVE_HW[0]}x{NATIVE_HW[1]} frames: det_proto "
+        f"{len(det_proto['detections'])} entries → mgp {len(mdet['detections'])} → rescore "
+        f"{len(rdet['detections'])} → seq_nms {len(ddet['detections'])}; {len(track['tracks'])} "
+        f"tracks ({n_pert} boxes perturbed), {len(dtub['tracks'])} tubelets; seq_nms device == "
+        f"host (paths identical, scores within {ds_backends:.2e})")
+    log(f"staged chain wall on the card: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                                       for k, v in walls.items())
+        + f"; CPU reruns: " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in cpu_walls.items())
+        + f"; card vs CPU worst (box px, score): {errs}; kernel A {a_mgp} launches at "
+        f"{tuple(flow_rec['mgp_shape']['shape'])} ({flow_rec['mgp_shape']['device_ms']:.5f} ms "
+        f"device a launch in phase 3); peak device memory {max(peaks.values()) / 2**20:.1f} "
+        f"MiB (by stage: " + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in peaks.items())
+        + "); one-frame mgp: no launch, == CPU")
+    return launches
+
+
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
@@ -1967,11 +2236,14 @@ def main(argv=None) -> int:
         f"first chunk, {chunk_ms:.1f} ms per full chunk; peak memory {speak / 2**20:.1f} MiB")
     nms_counts = phase_frame_nms(dev, kernels)
     torch.cuda.synchronize()
-    staged_counts = phase_staged(dev, kernels, args.profile)
+    staged_counts, staged_ctx = phase_staged(dev, kernels, args.profile)
     torch.cuda.synchronize()
     phase_stream_engines(kernels, stream_models, stream_ctx)
     torch.cuda.synchronize()
     phase_sweep(dev, kernels, slice_ctx, fps, card)
+    torch.cuda.synchronize()
+    del stream_models, stream_ctx, slice_ctx
+    chain_counts = phase_staged_chain(dev, kernels, staged_ctx, records["flow_level"])
     torch.cuda.synchronize()
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
@@ -1979,6 +2251,7 @@ def main(argv=None) -> int:
                 "resize_normalize": staged_counts, "track_scan": staged_counts}
     for name, rec in records.items():
         rec["launches"] = own_path[name][name]
+    records["flow_level"]["launches_staged_chain"] = chain_counts["flow_level"]
     rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

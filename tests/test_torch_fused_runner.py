@@ -347,8 +347,8 @@ def test_pipeline_config_matches_jax_tool(dataset, cli_run, tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("flags, error", [
-    ([], "Queue 1, item 3"),  # --engine staged, the default
-    (["--engine", "fused", "--multihost"], "Queue 1, item 7"),
+    ([], "Queue 1, item 1"),  # --engine staged, the default
+    (["--engine", "fused", "--multihost"], "Queue 1, item 5"),
     (["--engine", "fused", "--snap_weight", "0.5"], "not ported yet"),
     (["--engine", "fused", "--tubelet_boxes"], "not ported yet"),
     (["--engine", "fused", "--template_eta", "0.1"], "not ported yet"),

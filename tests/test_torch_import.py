@@ -54,6 +54,7 @@ def test_slice_modules_listed():
         "kernels.preprocess", "kernels.track_scan", "cli.detect", "cli.track", "utils.common",
         "pipeline.checkpoint", "pipeline.runner", "pipeline.fused_runner", "dist.sharding",
         "evaluation.vid_map", "evaluation.calibration", "video.perturb", "cli.pipeline_tool",
+        "kernels.seq_nms_host", "utils.prng", "cli.mgp", "cli.rescore", "cli.seq_nms",
     ):
         assert "vdetlib_tpu_torch." + m in MODULES, m
 

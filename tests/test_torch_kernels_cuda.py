@@ -5,9 +5,10 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
 
 - kernel A (flow level), P = 32 and 255 pairs of 60×80 bf16, 4 pairs of
   120×160 and one ragged 13×37 pair, each at search/radius (5, 3) and
-  (3, 1): the MGP box-shift tolerance of tests/test_mgp.py (mean < 0.05 px,
-  max < 0.5 px). Both compute in float32; they differ in summation order
-  and in the kernel's pre-scaled exp2.
+  (3, 1), and the staged MGP's 95 pairs of 90×120: the MGP box-shift
+  tolerance of tests/test_mgp.py (mean < 0.05 px, max < 0.5 px). Both
+  compute in float32; they differ in summation order and in the kernel's
+  pre-scaled exp2. ``flow_video`` of one frame launches nothing;
 - kernel B (grouped NMS), 256 frames of 192 slots with 30 class groups, score
   ties, duplicates, invalid and padded slots (``chip_smoke.nms_problem``, the
   smoke run's generator): keep sets identical; and the cases its sorted,
@@ -15,6 +16,10 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
   group and a group a slot, ids -7 and 2^30, nothing valid, a suppression
   chain of 95 links across words, an IoU exactly at the threshold, and
   thresholds 0 and -0.1; the stream's 32 × 192 through ``batched_nms``;
+  above its 512 slots (the fused dedup's 576 at ``mgp_window`` 4)
+  ``nms_grouped`` takes the fixpoint and launches no B, and above D's
+  8,192 ``batched_nms`` (2 × 8,200) takes it and launches no D: keep sets
+  identical to the CPU's plain version;
 - kernel C (batched NMS), the stream's 960 problems (32 frames × 30 classes)
   of 64 slots, and a ragged 7-slot case: keep sets identical; and the same
   edge cases up to 128 slots, at 3 and 5 problems;
@@ -290,6 +295,71 @@ def test_batched_nms_routes_192_slots_to_the_grouped_kernel(cuda):
     assert kc.nms_batched_kernel.launches == before_c
     assert torch.equal(got, kb.nms_unsorted_fixpoint(boxes, scores, valid, 0.3))
     assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def test_nms_grouped_routes_576_slots_to_the_fixpoint(cuda):
+    """The fused dedup at ``mgp_window`` 4 (64 × 9 = 576 slots, 30 class
+    groups): above B's 512 slots ``nms_grouped`` runs the sort-free fixpoint
+    in torch ops (it raised before), launches no B, and equals the CPU's
+    plain version."""
+    from vdetlib_tpu_torch.kernels.nms import nms_grouped
+
+    arrs = [torch.from_numpy(a) for a in nms_problem(64, 576, seed=12, groups=30)]
+    before = kb.nms_grouped_kernel.launches
+    got = nms_grouped(*(a.to(cuda) for a in arrs), 0.3)
+    torch.cuda.synchronize()
+    assert kb.nms_grouped_kernel.launches == before
+    want = kb.nms_unsorted_fixpoint(*arrs[:3], 0.3, groups=arrs[3])
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < int(arrs[2].sum())
+
+
+def test_batched_nms_above_the_sorted_kernels_limit(cuda):
+    """Above D's 8,192 slots ``batched_nms`` runs the sort-free fixpoint in
+    torch ops (it raised before), launches no D, and equals the CPU's plain
+    version."""
+    from vdetlib_tpu_torch.kernels.nms import batched_nms
+
+    arrs = [torch.from_numpy(a) for a in nms_problem(2, 8200, seed=13)]
+    before = kd.nms_sorted_kernel.launches
+    got = batched_nms(*(a.to(cuda) for a in arrs), 0.3)
+    torch.cuda.synchronize()
+    assert kd.nms_sorted_kernel.launches == before
+    want = kb.nms_unsorted_fixpoint(*arrs, 0.3)
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < int(arrs[2].sum())
+
+
+def test_flow_video_of_one_frame_launches_nothing(cuda):
+    """A one-frame video has no pair: ``flow_video`` returns the empty field
+    on the card without a launch of A (whose wrapper refuses zero pairs)."""
+    frames = torch.from_numpy(_flow_video().frames[:1]).to(cuda)
+    before = kl.flow_level.launches
+    for upsample, hw in ((False, (60, 80)), (True, (240, 320))):
+        got = tflow.flow_video(frames, preset="fastest", upsample=upsample)
+        assert got.shape == (0, *hw, 2) and got.device == frames.device
+    assert kl.flow_level.launches == before
+
+
+def test_flow_kernel_at_the_mgp_shape(cuda):
+    """The staged MGP's shape: 95 pairs of 90×120 (96 native 360×480
+    frames at quarter resolution), box shifts of the objects' boxes within
+    the MGP tolerance of its plain version."""
+    sv = make_video(SynthConfig(num_frames=96, height=360, width=480, num_objects=8,
+                                num_classes=4, seed=20))
+    gray = tflow.to_gray(torch.from_numpy(sv.frames).to(cuda))
+    gray = tflow._avg_pool2(tflow._avg_pool2(gray)).to(torch.bfloat16)
+    i1, i2 = gray[:-1].contiguous(), gray[1:].contiguous()
+    before = kl.flow_level.launches
+    got = kl.flow_level(i1, i2)
+    torch.cuda.synchronize()
+    assert kl.flow_level.launches == before + 1
+    want = kl._flow_level(i1, i2)
+    assert got.shape == want.shape == (95, 90, 120, 2)
+    boxes = torch.from_numpy(sv.gt_boxes[:, :95].transpose(1, 0, 2).copy()).to(cuda) / 4
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=cuda)
+    d = (tflow.mean_flow_in_boxes(got, boxes, valid)
+         - tflow.mean_flow_in_boxes(want, boxes, valid)).abs() * 4  # full-res px
+    assert float(d.mean()) < 0.05 and float(d.max()) < 0.5, (float(d.mean()), float(d.max()))
+    assert float(want.abs().max()) > 0.5
 
 
 @functools.lru_cache(maxsize=None)

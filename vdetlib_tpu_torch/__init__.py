@@ -9,12 +9,13 @@ package so every function has an obvious counterpart:
 - :mod:`.geometry` — box math with the legacy +1 pixel convention;
 - :mod:`.nn` — detector (backbone, ROI-align head) and tracker networks;
 - :mod:`.kernels` — flow, NMS and seq-NMS, with the CUDA kernel wrappers;
-- :mod:`.video` — detection step, MGP hop, tracker scan, rescoring, linking,
-  the streaming engine and per-frame NMS over protos;
+- :mod:`.video` — the staged stages (detection, MGP, tracking, tubelet
+  perturbation, rescoring, seq-NMS linking), the streaming engine and
+  per-frame NMS over protos;
 - :mod:`.pipeline` — the fused single-program pipeline;
 - :mod:`.cli` — the stage tools (``python -m vdetlib_tpu_torch <tool>``);
 - :mod:`.protos`, :mod:`.data`, :mod:`.utils` — JSON protos, synthetic
-  videos and frame loading, logging;
+  videos and frame loading, logging, JAX's key stream in numpy;
 - :mod:`.weights` — Flax parameter trees → torch modules, and seeded init.
 
 Public functions keep the JAX package's layouts: frames ``(T, H, W, 3)``

@@ -6,7 +6,10 @@ import sys
 TOOLS = {
     "detect": "vdetlib_tpu_torch.cli.detect",
     "frame_nms": "vdetlib_tpu_torch.cli.frame_nms",
+    "mgp": "vdetlib_tpu_torch.cli.mgp",
     "pipeline": "vdetlib_tpu_torch.cli.pipeline_tool",
+    "rescore": "vdetlib_tpu_torch.cli.rescore",
+    "seq_nms": "vdetlib_tpu_torch.cli.seq_nms",
     "stream": "vdetlib_tpu_torch.cli.stream",
     "track": "vdetlib_tpu_torch.cli.track",
 }

@@ -11,7 +11,8 @@ convert a JAX one with ``scripts/convert_orbax_checkpoint.py``), else they
 are random, drawn from ``--seed``.
 
 Not ported yet: ``--engine staged`` (the default, as in JAX: ROADMAP.md
-Queue 1 item 3) and ``--multihost`` (item 7) raise before anything loads;
+Queue 1 item 1, the staged runner) and ``--multihost`` (item 5) raise
+before anything loads;
 ``--snap_weight`` > 0, ``--tubelet_boxes`` and ``--template_eta`` > 0 raise
 when the pipeline is built.
 
@@ -101,10 +102,10 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.engine == "staged":
         raise NotImplementedError(
-            "the staged engine is not ported yet (ROADMAP.md Queue 1, item 3); "
+            "the staged runner is not ported yet (ROADMAP.md Queue 1, item 1); "
             "run with --engine fused")
     if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 7)")
+        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 5)")
 
     import torch
 

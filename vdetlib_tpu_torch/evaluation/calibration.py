@@ -6,7 +6,7 @@ boosts), so a pooled ranking across videos interleaves them wrongly even
 when every per-video ranking is right. ``rank_normalize`` replaces each
 video's per-class scores by their within-video rank quantile (label-free).
 The Platt calibrator and the ``calibrate`` tool are not ported yet
-(ROADMAP.md, Queue 1 item 5).
+(ROADMAP.md, Queue 1: evaluation and the remaining host tools).
 """
 
 from __future__ import annotations

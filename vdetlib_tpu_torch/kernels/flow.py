@@ -55,7 +55,9 @@ def flow_video(frames_u8, levels: int = 3, search: int = 3, radius: int = 3,
     flow[t] maps frame t → t+1. Values are in FULL-resolution pixels; with
     ``upsample=False`` the grid stays at the preset's resolution (consumers
     scale box coordinates by :func:`flow_coord_scale`), with ``upsample=True``
-    it is resized bilinearly to (H, W).
+    it is resized bilinearly to (H, W). A video of fewer than two frames
+    has no pair: the field is empty, ``(0, h, w, 2)`` float32 on the frames'
+    device, as in the JAX package, and no level runs.
     """
     if preset not in ("fast", "fastest"):
         raise NotImplementedError(
@@ -67,6 +69,9 @@ def flow_video(frames_u8, levels: int = 3, search: int = 3, radius: int = 3,
     if pool == 4:
         gray = _avg_pool2(gray)
     gray = gray.to(torch.bfloat16)
+    if gray.shape[0] < 2:
+        hw = gray.shape[1:] if not upsample else frames_u8.shape[1:3]
+        return torch.zeros((0, *hw, 2), dtype=torch.float32, device=frames_u8.device)
     f = flow_level(
         gray[:-1].contiguous(), gray[1:].contiguous(),
         search=5, radius=radius, temperature=temperature,

@@ -19,14 +19,51 @@ from vdetlib_tpu_torch.kernels.nms_batched import MAX_SLOTS as BATCHED_MAX
 from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
 from vdetlib_tpu_torch.kernels.nms_grouped import MAX_SLOTS as GROUPED_MAX
 from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel, nms_unsorted_fixpoint
+from vdetlib_tpu_torch.kernels.nms_sorted import MAX_SLOTS as SORTED_MAX
 from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel, visit_order
 
-__all__ = ["batched_nms", "nms_fixpoint", "nms_grouped", "nms_host", "nms_unsorted_fixpoint",
-           "nms_xla", "sort_by_score"]
+__all__ = ["batched_nms", "batched_route", "fixpoint_passes", "grouped_route", "nms_fixpoint",
+           "nms_grouped", "nms_host", "nms_unsorted_fixpoint", "nms_xla", "sort_by_score"]
 
 # the Jacobi steps between two convergence checks of nms_fixpoint (each
 # check reads a flag back to the host)
 FIXPOINT_CHECK_EVERY = 8
+# a fixpoint pass builds the (problems, N, N) adjacency of at most this many
+# entries (512 MiB in float32; the pairwise IoU's intermediates of the same
+# shape take several times that at the pass's peak)
+FIXPOINT_ELEMS = 1 << 27
+
+
+def fixpoint_passes(fn, boxes, scores, valid, *rest, max_elems: int = FIXPOINT_ELEMS):
+    """``fn(boxes, scores, valid, *rest)`` over (B, N) problems, in passes of
+    at most ``max_elems`` adjacency entries (at least one problem a pass)
+    → keep (B, N) bool."""
+    n, B = scores.shape[-1], scores.shape[0]
+    step = max(1, max_elems // (n * n))
+    return torch.cat([fn(boxes[i:i + step], scores[i:i + step], valid[i:i + step],
+                         *(r[i:i + step] for r in rest)) for i in range(0, max(B, 1), step)])
+
+
+def grouped_route(n: int) -> str:
+    """Where :func:`nms_grouped` sends problems of ``n`` slots on a card, as
+    the JAX ``nms_grouped`` routes them: ``"kernel"`` (B) up to its 512 slots
+    (JAX runs its Pallas kernel for n <= 512), ``"fixpoint"`` above
+    (``nms_unsorted_fixpoint`` with groups in torch ops, as JAX runs its XLA
+    fixpoint there)."""
+    return "kernel" if n <= GROUPED_MAX else "fixpoint"
+
+
+def batched_route(n: int) -> str:
+    """Where :func:`batched_nms` sends problems of ``n`` slots on a card:
+    ``"batched"`` (C) up to 128 slots, ``"grouped"`` (B with one group) up to
+    512, ``"sorted"`` (D) up to its ``MAX_SLOTS`` (8,192: a block's shared
+    memory), ``"fixpoint"`` above (``nms_unsorted_fixpoint`` in torch ops, the
+    XLA fixpoint the JAX package runs for every N > 128)."""
+    if n <= BATCHED_MAX:
+        return "batched"
+    if n <= GROUPED_MAX:
+        return "grouped"
+    return "sorted" if n <= SORTED_MAX else "fixpoint"
 
 
 def sort_by_score(scores, valid):
@@ -91,12 +128,14 @@ def batched_nms(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFS
     """NMS over a batch of independent problems.
 
     boxes (..., N, 4), scores/valid (..., N) → keep (..., N) bool. CPU tensors
-    take the plain sort-free fixpoint. On a card, N <= 128 launches kernel C
-    (as the JAX package runs its Pallas ``nms_pallas_fixpoint`` there),
-    128 < N <= 512 launches kernel B with one group for every slot (the
-    stream's MGP dedup at N = 3R = 192), and larger N launch kernel D, up to
-    its ``MAX_SLOTS`` (8192; above, D's wrapper raises). Each computes the
-    same exact keep set as the XLA fixpoint the JAX package runs above 128.
+    take the plain sort-free fixpoint. On a card :func:`batched_route`
+    decides: N <= 128 launches kernel C (as the JAX package runs its Pallas
+    ``nms_pallas_fixpoint`` there), 128 < N <= 512 launches kernel B with one
+    group for every slot (the stream's MGP dedup at N = 3R = 192), N up to
+    D's ``MAX_SLOTS`` launches kernel D, and above it the sort-free fixpoint
+    runs in torch ops, in passes of at most ``FIXPOINT_ELEMS`` adjacency
+    entries. Each computes the same exact keep set as the XLA fixpoint the
+    JAX package runs above 128.
     """
     n = scores.shape[-1]
     lead = scores.shape[:-1]
@@ -105,13 +144,16 @@ def batched_nms(boxes, scores, valid, thresh: float, offset: float = LEGACY_OFFS
     b = boxes.reshape(-1, n, 4).float().contiguous()
     s = scores.reshape(-1, n).float().contiguous()
     v = valid.reshape(-1, n).bool().contiguous()
-    if n <= BATCHED_MAX:
+    route = batched_route(n)
+    if route == "batched":
         keep = nms_batched_kernel(b, s, v, thresh, offset)
-    elif n <= GROUPED_MAX:
+    elif route == "grouped":
         g = torch.zeros(s.shape, dtype=torch.int32, device=s.device)
         keep = nms_grouped_kernel(b, s, v, g, thresh, offset)
-    else:
+    elif route == "sorted":
         keep = nms_sorted_kernel(b, s, v, thresh, offset)
+    else:
+        keep = fixpoint_passes(lambda *a: nms_unsorted_fixpoint(*a, thresh, offset), b, s, v)
     return keep.reshape(lead + (n,))
 
 
@@ -119,22 +161,25 @@ def nms_grouped(boxes, scores, valid, groups, thresh: float, offset: float = LEG
     """Greedy NMS of disjoint group sub-problems sharing one slot axis.
 
     Equivalent to per-group NMS (per-class NMS when each slot carries one
-    class, as in the fused pipeline) with one (N, N) IoU for all groups,
-    through the kernel B wrapper: the plain version on the CPU, the CUDA
-    kernel (up to 512 slots) on a card.
+    class, as in the fused pipeline) with one (N, N) IoU for all groups:
+    the plain version on the CPU; on a card :func:`grouped_route` decides,
+    kernel B up to 512 slots, the sort-free fixpoint with groups in torch
+    ops above (the fused dedup at ``mgp_window`` >= 4 has 64 × 9 = 576 slots
+    and more), in passes of at most ``FIXPOINT_ELEMS`` adjacency entries.
 
     boxes (..., N, 4), scores/valid/groups (..., N) → keep (..., N) bool.
     """
     n = scores.shape[-1]
     lead = scores.shape[:-1]
-    keep = nms_grouped_kernel(
-        boxes.reshape(-1, n, 4).float().contiguous(),
-        scores.reshape(-1, n).float().contiguous(),
-        valid.reshape(-1, n).bool().contiguous(),
-        groups.reshape(-1, n).to(torch.int32).contiguous(),
-        thresh,
-        offset,
-    )
+    args = (boxes.reshape(-1, n, 4).float().contiguous(),
+            scores.reshape(-1, n).float().contiguous(),
+            valid.reshape(-1, n).bool().contiguous(),
+            groups.reshape(-1, n).to(torch.int32).contiguous())
+    if args[0].device.type == "cuda" and grouped_route(n) == "fixpoint":
+        keep = fixpoint_passes(
+            lambda b, s, v, g: nms_unsorted_fixpoint(b, s, v, thresh, offset, groups=g), *args)
+    else:
+        keep = nms_grouped_kernel(*args, thresh, offset)
     return keep.reshape(lead + (n,))
 
 

@@ -13,7 +13,7 @@ converts one into this format on a machine that has both.
 
 ``save_train_state`` / ``load_train_state`` are not ported: the port's
 train state is whatever its trainer defines, and the port has no trainer
-yet (ROADMAP.md, Queue 1 item 6).
+yet (ROADMAP.md, Queue 1: training).
 """
 
 from __future__ import annotations

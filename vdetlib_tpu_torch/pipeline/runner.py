@@ -5,8 +5,8 @@ seq-NMS), ``Models`` and ``dump_config``, which the fused sweep
 (``pipeline/fused_runner.py``) reads and writes. In the port ``Models``
 holds the detector and tracker modules alone: a torch module carries its
 weights, so there are no ``*_params`` fields. The staged engine
-(``run_video`` / ``run_videos``) is not ported yet (ROADMAP.md, Queue 1
-item 3).
+(``run_video`` / ``run_videos``) is not ported yet (ROADMAP.md, Queue 1:
+the staged runner); the stages it chains are in ``video/``.
 """
 
 from __future__ import annotations

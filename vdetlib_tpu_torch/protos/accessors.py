@@ -66,3 +66,24 @@ def tracks_proto_from_boxes(
         if entries:
             tracks.append(entries)
     return {"video": video, "method": method, "tracks": tracks}
+
+
+def score_proto_from_track_proto(track_proto: dict, per_track_class_scores: Sequence[dict],
+                                 method: str = "tubelet_rescore") -> dict:
+    """Attach per-class tubelet statistics to a track_proto → score_proto.
+
+    ``per_track_class_scores[i]`` maps ``class_index`` → statistic for track
+    i. Each track becomes ``{"boxes": [...], "scores": [{class_index,
+    score}]}`` (classes ascending); the proto keeps ``video`` and records the
+    track_proto's method as ``base_method``."""
+    if len(per_track_class_scores) != len(track_proto["tracks"]):
+        raise ValueError("one class-score dict required per track")
+    out_tracks = []
+    for track, cls_scores in zip(track_proto["tracks"], per_track_class_scores):
+        out_tracks.append({
+            "boxes": [dict(b) for b in track],
+            "scores": [{"class_index": int(ci), "score": float(sc)}
+                       for ci, sc in sorted(cls_scores.items())],
+        })
+    return {"video": track_proto["video"], "method": method,
+            "base_method": track_proto.get("method"), "tracks": out_tracks}

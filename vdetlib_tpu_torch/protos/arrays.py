@@ -100,3 +100,82 @@ def arrays_to_det_proto(boxes, scores, mask, frame_ids: Sequence[int], video: st
                     "scores": entry_scores,
                 })
     return {"video": video, "detections": detections}
+
+
+def _track_boxes(track):
+    """A track's boxes: tracks are lists of boxes, or score_proto dicts
+    ``{"boxes": [...], ...}``."""
+    return track["boxes"] if isinstance(track, dict) else track
+
+
+def track_proto_to_arrays(track_proto: dict, frame_ids: Sequence[int],
+                          max_tracks: Optional[int] = None
+                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """track_proto → (boxes[K, T, 4], scores[K, T], mask[K, T]); the first
+    ``max_tracks`` tracks."""
+    tracks = track_proto["tracks"]
+    if max_tracks is not None:
+        tracks = tracks[:max_tracks]
+    K, T = len(tracks), len(frame_ids)
+    fmap = _frame_index_map(frame_ids)
+    boxes = np.zeros((K, T, 4), dtype=np.float32)
+    scores = np.zeros((K, T), dtype=np.float32)
+    mask = np.zeros((K, T), dtype=bool)
+    for k, track in enumerate(tracks):
+        for box in _track_boxes(track):
+            t = fmap.get(int(box["frame"]))
+            if t is None:
+                continue
+            boxes[k, t] = np.asarray(box["bbox"], dtype=np.float32)
+            scores[k, t] = float(box.get("score", 0.0))
+            mask[k, t] = True
+    return boxes, scores, mask
+
+
+def track_cls_scores_to_arrays(track_proto: dict, frame_ids: Sequence[int], num_classes: int,
+                               max_tracks: Optional[int] = None) -> tuple[np.ndarray, bool]:
+    """Each track box's ``perturb_scores`` (written by the perturbation
+    stage, ``video/perturb.py``) → ((K, T, C) float32, found_any); absent
+    entries are zeros, and ``found_any`` is False when no box carries one."""
+    tracks = track_proto["tracks"]
+    if max_tracks is not None:
+        tracks = tracks[:max_tracks]
+    K, T = len(tracks), len(frame_ids)
+    fmap = _frame_index_map(frame_ids)
+    out = np.zeros((K, T, num_classes), dtype=np.float32)
+    found = False
+    for k, track in enumerate(tracks):
+        for box in _track_boxes(track):
+            t = fmap.get(int(box["frame"]))
+            if t is None:
+                continue
+            for s in box.get("perturb_scores", []):
+                ci = int(s["class_index"])
+                if 0 <= ci < num_classes:
+                    out[k, t, ci] = float(s["score"])
+                    found = True
+    return out, found
+
+
+def arrays_to_track_proto(boxes, scores, mask, frame_ids: Sequence[int], video: str, method: str,
+                          anchors: Optional[Sequence[int]] = None) -> dict:
+    """(boxes[K, T, 4], scores[K, T], mask[K, T]) → track_proto; a track with
+    no live frame is dropped."""
+    boxes = np.asarray(boxes)
+    scores = np.asarray(scores)
+    mask = np.asarray(mask)
+    K, T = mask.shape
+    tracks = []
+    for k in range(K):
+        entries = []
+        for t in range(T):
+            if not mask[k, t]:
+                continue
+            e = {"frame": int(frame_ids[t]), "bbox": [float(v) for v in boxes[k, t]],
+                 "score": float(scores[k, t])}
+            if anchors is not None:
+                e["anchor"] = int(anchors[k])
+            entries.append(e)
+        if entries:
+            tracks.append(entries)
+    return {"video": video, "method": method, "tracks": tracks}

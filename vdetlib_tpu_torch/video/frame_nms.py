@@ -9,10 +9,13 @@ identical keep sets:
 - ``host``: numpy greedy NMS per (frame, class), no device involved;
 - ``pallas``: pad to (T·C, N) and run the hand kernels that replace the
   Pallas ones on ``device``, routed as the JAX ``batched_nms_pallas`` routes:
-  N <= 128 → kernel C, N > 128 → kernel D (up to its 8,192 slots on a card;
-  the JAX package takes any N);
-- ``xla``: the same route as ``pallas`` (the JAX package's XLA fixpoint
-  computes the same keep sets; the port has one device route);
+  N <= 128 → kernel C, N > 128 → kernel D (up to its 8,192 slots on a card,
+  above which D's wrapper raises: the JAX Pallas kernel has a VMEM limit of
+  the same kind);
+- ``xla``: the same route as ``pallas`` up to D's limit (the JAX package's
+  XLA fixpoint computes the same keep sets), and above it the sort-free
+  fixpoint (``kernels/nms.py::nms_unsorted_fixpoint``) in torch ops, over
+  at most ``FIXPOINT_ELEMS`` adjacency entries a pass;
 - ``fixpoint``: the same padding, then the sorted Jacobi form
   (``kernels/nms.py::nms_fixpoint``, batched matrix-vector products) on
   ``device``, over at most ``FIXPOINT_ELEMS`` adjacency entries a pass.
@@ -29,18 +32,22 @@ import numpy as np
 import torch
 
 from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET
-from vdetlib_tpu_torch.kernels.nms import nms_fixpoint, nms_host
+from vdetlib_tpu_torch.kernels.nms import (
+    FIXPOINT_ELEMS,
+    fixpoint_passes,
+    nms_fixpoint,
+    nms_host,
+    nms_unsorted_fixpoint,
+)
 from vdetlib_tpu_torch.kernels.nms_batched import MAX_SLOTS as _BATCHED_MAX
 from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
+from vdetlib_tpu_torch.kernels.nms_sorted import MAX_SLOTS as _SORTED_MAX
 from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
 from vdetlib_tpu_torch.protos.accessors import det_class_indices, frame_ids
 
 BACKENDS = ("host", "xla", "fixpoint", "pallas")
-# the (problems, N, N) float32 adjacency of the fixpoint backend is built
-# for at most this many entries at once (512 MiB; the pairwise IoU's
-# intermediates of the same shape take several times that at the pass's
-# peak): 1,920 problems of 512 boxes would take 2 GiB in one pass
-FIXPOINT_ELEMS = 1 << 27
+# FIXPOINT_ELEMS bounds a pass of the fixpoint forms: 1,920 problems of 512
+# boxes would take 2 GiB of float32 adjacency in one pass
 
 
 def frame_nms(vid_proto: dict, det_proto: dict, thresh: float = 0.3, backend: str = "host",
@@ -124,9 +131,11 @@ def _frame_nms_device(vid_proto, det_proto, thresh, offset, max_boxes, device,
     v = torch.from_numpy(has_entry).to(device).reshape(T * C, N)
     with torch.no_grad():
         if backend == "fixpoint":
-            step = max(1, FIXPOINT_ELEMS // (N * N))
-            keep = torch.cat([nms_fixpoint(b[i:i + step], s[i:i + step], v[i:i + step], thresh,
-                                           offset) for i in range(0, T * C, step)])
+            keep = fixpoint_passes(lambda *a: nms_fixpoint(*a, thresh, offset), b, s, v,
+                                   max_elems=FIXPOINT_ELEMS)
+        elif backend == "xla" and N > _SORTED_MAX:
+            keep = fixpoint_passes(lambda *a: nms_unsorted_fixpoint(*a, thresh, offset), b, s, v,
+                                   max_elems=FIXPOINT_ELEMS)
         else:
             kernel = nms_batched_kernel if N <= _BATCHED_MAX else nms_sorted_kernel
             keep = kernel(b.contiguous(), s, v, thresh, offset)
