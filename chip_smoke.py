@@ -107,7 +107,8 @@ Phases, each synchronised and each fatal on failure:
    seconds the main thread waited on the prefetch thread, and the peak
    device memory. The ``pipeline`` tool itself reads JPEG frames, which
    needs ``cv2`` (absent on the card's machine), so the tool runs in the
-   CPU tests (tests/test_torch_fused_runner.py), not here.
+   CPU tests (tests/test_torch_fused_runner.py and, with the staged engine,
+   tests/test_torch_staged_runner.py), not here.
 11. staged chain: phase 8's det_proto and track_proto over its 96 native
    360×480 frames, in memory, through the staged stages at the tools'
    defaults with phase 8's base detector (rebuilt from its seed): ``mgp``
@@ -122,13 +123,37 @@ Phases, each synchronised and each fatal on failure:
    video through ``mgp`` launches no A and equals the CPU. Prints each
    stage's wall, A's launches and its device ms at the MGP shape (phase 3),
    and the peak device memory.
+12. staged sweep: phase 10's loaded models run ``run_videos`` over phase
+   10's three videos (frames in memory) at the ``pipeline`` tool's stage
+   defaults (batch 8, 32 proposals, score_thresh 0.05, MGP window 1
+   "fastest", 16 tracks at stride 2, 100 seq-NMS paths) with phase 10's
+   calibrated ``anchor_thresh``: every stage file of each video
+   (``detect``, ``mgp``, ``track``, ``score``, ``rescored``, ``final``,
+   ``tubelets``) must equal, byte for byte, the stages called one by one
+   on the same inputs; kernel A launches exactly twice a video, F at least
+   once a video that seeds a track, B–E never. A second run writes nothing
+   (every ``st_mtime_ns`` kept); with one video's ``final.json`` and
+   ``tubelets.json`` deleted, the next run writes those two alone, with the
+   same bytes, and launches no A or F. ``workers`` 2 over the two shorter
+   videos (two threads' launches of A and F on the card at once) writes
+   the same bytes. With ``keep_going`` a fourth entry one frame short is
+   marked failed while the other three complete (they resume), and
+   without it the sweep raises. Then phase 4's tiny float32 models through
+   ``run_video`` and the fused pipeline at tests/test_fused_parity.py's
+   matched configuration, at its default fixture and at its varying slot
+   layout (asserted): the same (frame, class) keys and counts, scores
+   within rtol 1e-4 / atol 1e-5, boxes within rtol 1e-4 / atol 1e-3.
+   Prints the sweep's frames/s beside phase 10's fused sweep, each stage's
+   wall summed over the videos (``StageMetrics``), the ``workers`` 2 wall
+   beside the same videos' direct chain, and the peak device memory.
 
-Around each of phases 5–8 and 11 the kernels' launch counters are zeroed
-just before and read just after; a kernel's ``launches`` in the record is
-the count from its own path (A, B: fused slice; C: stream; D: frame NMS; E,
-F: staged path); A's record also holds ``launches_staged_chain`` (phase 11)
-and its ``mgp_shape`` times. B–E are then ranked by their device loss over
-phases 5–8, launches × (device ms − bound ms).
+Around each of phases 5–8, 11 and 12 the kernels' launch counters are
+zeroed just before and read just after; a kernel's ``launches`` in the
+record is the count from its own path (A, B: fused slice; C: stream; D:
+frame NMS; E, F: staged path); A's record also holds
+``launches_staged_chain`` (phase 11) and its ``mgp_shape`` times, A's and
+F's ``launches_staged_sweep`` (phase 12). B–E are then ranked by their
+device loss over phases 5–8, launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -1898,7 +1923,8 @@ def phase_sweep(dev, kernels, ctx, slice_fps, card):
     """Phase 10: checkpoints of phase 5's models (drawn again from their
     seeds), then ``run_videos_fused`` over phase 5's videos with the loaded
     models; returns the sweep's kernel launches, counted apart from phases
-    5-9."""
+    5-9, and for phase 12 the loaded models, the entries, the calibrated
+    ``anchor_thresh`` and the sweep's frames/s."""
     import os
     import tempfile
 
@@ -1993,12 +2019,14 @@ def phase_sweep(dev, kernels, ctx, slice_fps, card):
             "three; without keep_going it raised")
 
     fps = sum(VIDEO_LENGTHS) / wall
+    ctx12 = {"models": models, "entries": entries, "anchor_thresh": cfg.track.anchor_thresh,
+             "fps": fps}
     log(f"sweep on {card}: {sum(VIDEO_LENGTHS)} frames in {wall:.3f} s = {fps:.2f} frames/s "
         f"(run_videos_fused: load, upload, pipeline, protos), against phase 5's pipeline-only "
         f"{slice_fps:.2f} frames/s; prefetch wait {record['prefetch_wait_s']:.4f} s; peak "
         f"device memory {peak / 2**20:.1f} MiB; the direct calls' {sum(spent):.3f} s: pipeline "
         f"{spent[0]:.3f} s, fused_to_protos {spent[1]:.3f} s, proto writes {spent[2]:.3f} s")
-    return launches
+    return launches, ctx12
 
 
 # ---------------------------------------------------------------- main
@@ -2148,6 +2176,287 @@ def phase_staged_chain(dev, kernels, ctx, flow_rec):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+STAGE_FILES = ("detect", "mgp", "track", "score", "rescored", "final", "tubelets")
+
+
+def staged_sweep_config(anchor_thresh):
+    """The ``pipeline`` tool's stage defaults (C = 31 at 240×320) with phase
+    10's calibrated ``anchor_thresh``."""
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+    from vdetlib_tpu_torch.pipeline.runner import PipelineConfig
+    from vdetlib_tpu_torch.video.detect import DetectOptions
+    from vdetlib_tpu_torch.video.link import LinkOptions
+    from vdetlib_tpu_torch.video.mgp import MGPOptions
+    from vdetlib_tpu_torch.video.rescore import RescoreOptions
+    from vdetlib_tpu_torch.video.track import TrackOptions
+
+    return PipelineConfig(
+        detect=DetectOptions(batch_size=8, max_rois=32, image_hw=(H, W), score_thresh=0.05),
+        mgp=MGPOptions(window=1, num_classes=C, image_hw=(H, W), flow_preset="fastest"),
+        track=TrackOptions(max_tracks=16, image_hw=(H, W), anchor_thresh=anchor_thresh,
+                           conf_thresh=0.5, frame_stride=2),
+        tracker_cfg=TrackerConfig(),
+        rescore=RescoreOptions(num_classes=C),
+        link=LinkOptions(num_classes=C),
+    )
+
+
+def stage_bytes(workdir, names):
+    """{video: {stage file: bytes}} of a staged run's files."""
+    import os
+    import pathlib
+
+    return {n: {k: pathlib.Path(workdir, n, f"{k}.json").read_bytes() for k in STAGE_FILES
+                if os.path.exists(os.path.join(workdir, n, f"{k}.json"))} for n in names}
+
+
+def direct_staged_chain(models, cfg, entries, dev, out_dir):
+    """Each entry through ``det_vid`` → ``mgp`` → ``track_from_det`` →
+    ``tubelet_rescore`` → ``seq_nms_video`` called one by one, the protos
+    written as the runner names them; returns each video's seconds."""
+    import os
+
+    from vdetlib_tpu_torch.protos import proto_dump
+    from vdetlib_tpu_torch.video.detect import det_vid
+    from vdetlib_tpu_torch.video.link import seq_nms_video
+    from vdetlib_tpu_torch.video.mgp import mgp
+    from vdetlib_tpu_torch.video.rescore import tubelet_rescore
+    from vdetlib_tpu_torch.video.track import track_from_det
+
+    secs = []
+    for vid, box, frames in entries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = det_vid(models.detector, vid, box, cfg.detect, frames_u8=frames)
+        mdet = mgp(vid, det, cfg.mgp, frames_u8=frames, device=dev)
+        track = track_from_det(models.tracker, vid, mdet, cfg.tracker_cfg, cfg.track,
+                               frames_u8=frames)
+        score, rdet = tubelet_rescore(vid, mdet, track, cfg.rescore, device=dev)
+        final, tubelets = seq_nms_video(vid, rdet, cfg.link, device=dev)
+        for name, proto in (("detect", det), ("mgp", mdet), ("track", track), ("score", score),
+                            ("rescored", rdet), ("tubelets", tubelets), ("final", final)):
+            proto_dump(proto, os.path.join(out_dir, vid["video"], f"{name}.json"))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def matched_staged_vs_fused(dev, varying_layout):
+    """tests/test_torch_staged_runner.py's staged-vs-fused check on ``dev``:
+    phase 4's tiny float32 models, tests/test_fused_parity.py's matched
+    configuration, video and proposals (frames in memory), ``run_video``
+    against the fused pipeline. Returns (worst score, worst box) error."""
+    import tempfile
+
+    from vdetlib_tpu_torch.data.synth import SynthConfig, make_video, vid_proto_in_memory
+    from vdetlib_tpu_torch.pipeline.fused import fused_to_protos, make_fused_pipeline
+    from vdetlib_tpu_torch.pipeline.fused_runner import fused_config_from_pipeline
+    from vdetlib_tpu_torch.pipeline.runner import Models, PipelineConfig, run_video
+    from vdetlib_tpu_torch.protos import proto_load
+    from vdetlib_tpu_torch.video.detect import DetectOptions
+    from vdetlib_tpu_torch.video.link import LinkOptions
+    from vdetlib_tpu_torch.video.mgp import MGPOptions
+    from vdetlib_tpu_torch.video.rescore import RescoreOptions
+    from vdetlib_tpu_torch.video.track import TrackOptions
+
+    T, R_, K, hw, budget = 8, 12, 4, (96, 128), 24
+    sv = make_video(SynthConfig(num_frames=T, height=hw[0], width=hw[1], num_classes=K, seed=7),
+                    video="vid_parity")
+    rng = np.random.default_rng(7)
+    rois = np.zeros((T, R_, 4), np.float32)
+    for t in range(T):
+        x1 = rng.uniform(0, hw[1] - 10, R_)
+        y1 = rng.uniform(0, hw[0] - 10, R_)
+        w = rng.uniform(8, 60, R_)
+        h = rng.uniform(8, 60, R_)
+        rois[t] = np.stack([x1, y1, np.minimum(x1 + w, hw[1] - 1),
+                            np.minimum(y1 + h, hw[0] - 1)], axis=1)
+    det, trk, trk_cfg = tiny_models(dev)
+    st, window, bg = (0.26, 2, 0.7) if varying_layout else (0.005, 1, 1.0)
+    cfg = PipelineConfig(
+        detect=DetectOptions(batch_size=4, max_rois=R_, image_hw=hw, score_thresh=st),
+        mgp=MGPOptions(window=window, score_decay=0.9, nms_thresh=0.3, max_boxes=budget,
+                       num_classes=K, flow_preset="fast"),
+        track=TrackOptions(max_tracks=6, anchors_per_round=3, anchor_thresh=0.3,
+                           conf_thresh=0.5, cover_thresh=0.5, batch_size=4, image_hw=hw,
+                           frame_stride=1),
+        tracker_cfg=trk_cfg,
+        rescore=RescoreOptions(match_thresh=0.5, top_ratio=0.5, boost="max", bg_decay=bg,
+                               max_boxes=budget, num_classes=K, max_tracks=6),
+        link=LinkOptions(link_thresh=0.5, suppress_thresh=0.3, max_paths=8, rescore="avg",
+                         max_boxes=budget, num_classes=K, min_score=0.0, backend="device"),
+    )
+    vid = vid_proto_in_memory(sv)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = run_video(tmp, vid, staged_box_proto(rois, sv), Models(det, trk), cfg,
+                          frames=sv.frames, device=dev)
+        staged, tubes, track, det_proto = (proto_load(paths[k]) for k in
+                                           ("final", "tubelets", "track", "detect"))
+    if varying_layout:  # the fixture's precondition
+        layouts = {}
+        for d in det_proto["detections"]:
+            layouts[d["frame"]] = layouts.get(d["frame"], ()) + (d["scores"][0]["class_index"],)
+        assert len(set(layouts.values())) > 1, "the slot layout does not vary"
+    pipe = make_fused_pipeline(det, trk, trk_cfg, fused_config_from_pipeline(cfg))
+    with torch.no_grad():
+        out = pipe(torch.from_numpy(sv.frames).to(dev), torch.from_numpy(rois).to(dev))
+    fused, ftubes = fused_to_protos(out, sv.frame_ids, vid["video"])
+    assert len(tubes["tracks"]) == len(ftubes["tracks"])
+    if not varying_layout:
+        assert int(out.n_tracks) == len(track["tracks"]) > 0, "track counts differ"
+
+    def index(proto):
+        idx = {}
+        for d in proto["detections"]:
+            for e in d["scores"]:
+                idx.setdefault((d["frame"], e["class_index"]), []).append(
+                    (e["score"], tuple(d["bbox"])))
+        return {k: sorted(v) for k, v in idx.items()}
+
+    a, b = index(staged), index(fused)
+    assert set(a) == set(b) and len(a) > 0, "staged and fused (frame, class) keys differ"
+    ws = wb = 0.0
+    for key in a:
+        assert len(a[key]) == len(b[key]), f"{key}: {len(a[key])} staged vs {len(b[key])} fused"
+        for (sa, ba), (sb, bb) in zip(a[key], b[key]):
+            np.testing.assert_allclose(sb, sa, rtol=1e-4, atol=1e-5, err_msg=str(key))
+            np.testing.assert_allclose(bb, ba, rtol=1e-4, atol=1e-3, err_msg=str(key))
+            ws = max(ws, abs(sa - sb))
+            wb = max(wb, float(np.abs(np.subtract(ba, bb)).max()))
+    return ws, wb
+
+
+def phase_staged_sweep(dev, kernels, ctx, card):
+    """Phase 12: ``run_videos`` over phase 10's videos with its loaded models
+    at the ``pipeline`` tool's stage defaults; returns the launches of its
+    first run."""
+    import os
+    import tempfile
+
+    from vdetlib_tpu_torch.pipeline.runner import run_videos
+    from vdetlib_tpu_torch.protos import proto_load
+
+    models, entries = ctx["models"], ctx["entries"]
+    cfg = staged_sweep_config(ctx["anchor_thresh"])
+    names = [e[0]["video"] for e in entries]
+    n_frames = sum(len(e[0]["frames"]) for e in entries)
+    with tempfile.TemporaryDirectory() as tmp:
+        w1, direct, w2 = (os.path.join(tmp, d) for d in ("w1", "direct", "w2"))
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        os.environ["VDETLIB_TPU_METRICS"] = metrics_path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = run_videos(w1, entries, models, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels, "staged sweep (phase 12)", ("flow_level", "track_scan"))
+        peak = torch.cuda.max_memory_allocated()
+        del os.environ["VDETLIB_TPU_METRICS"]
+        with open(metrics_path) as f:
+            records = [json.loads(line) for line in f]
+        assert records[-1]["stage"] == "pipeline" and records[-1]["frames"] == n_frames
+        assert not any(r.get("error") for r in res)
+        stage_walls = {}
+        for r in records[:-1]:
+            stage_walls[r["stage"]] = stage_walls.get(r["stage"], 0.0) + r["wall_s"]
+        n_tracks = [len(proto_load(r["track"])["tracks"]) for r in res]
+        assert launches["flow_level"] == 2 * len(entries), \
+            f"kernel A launched {launches['flow_level']} times, not twice a video"
+        assert launches["track_scan"] >= sum(n > 0 for n in n_tracks), \
+            "kernel F did not launch for every video that seeds a track"
+        for name in ("nms_grouped", "nms_batched", "nms_sorted", "resize_normalize"):
+            assert launches[name] == 0, f"kernel {name} launched in the staged sweep"
+        got = stage_bytes(w1, names)
+        assert all(len(got[n]) == len(STAGE_FILES) for n in names)
+
+        # 1. the direct chain, byte for byte
+        secs = direct_staged_chain(models, cfg, entries, dev, direct)
+        want = stage_bytes(direct, names)
+        for n in names:
+            for k in STAGE_FILES:
+                assert got[n][k] == want[n][k], f"staged sweep {n}/{k}.json differs from the chain's"
+        n_dets = [len(json.loads(got[n]["final"])["detections"]) for n in names]
+        n_tubes = [len(json.loads(got[n]["tubelets"])["tracks"]) for n in names]
+        assert min(n_dets) > 0 and min(n_tubes) > 0 and min(n_tracks) > 0
+        log(f"staged sweep == det_vid → mgp → track_from_det → tubelet_rescore → seq_nms_video "
+            f"called directly, byte for byte, {len(names)} videos x {len(STAGE_FILES)} files "
+            f"(tracks {n_tracks}, final dets {n_dets}, tubelets {n_tubes})")
+
+        # 2. resume: nothing written; then only seq-NMS's two files
+        stamps = {(n, k): os.stat(os.path.join(w1, n, f"{k}.json")).st_mtime_ns
+                  for n in names for k in STAGE_FILES}
+        t1 = time.perf_counter()
+        run_videos(w1, entries, models, cfg, device=dev)
+        resume_s = time.perf_counter() - t1
+        assert {key: os.stat(os.path.join(w1, *key) + ".json").st_mtime_ns
+                for key in stamps} == stamps, "a resumed sweep rewrote a stage file"
+        redo = names[1]
+        for k in ("final", "tubelets"):
+            os.remove(os.path.join(w1, redo, f"{k}.json"))
+        zero_counts(kernels)
+        run_videos(w1, entries, models, cfg, device=dev)
+        assert kernels["flow_level"].launches == 0 and kernels["track_scan"].launches == 0, \
+            "rerunning seq-NMS launched kernel A or F"
+        changed = {key for key in stamps
+                   if os.stat(os.path.join(w1, *key) + ".json").st_mtime_ns != stamps[key]}
+        assert changed == {(redo, "final"), (redo, "tubelets")}, changed
+        assert stage_bytes(w1, names) == got, "seq-NMS rerun wrote other bytes"
+
+        # 3. two videos' chains at once on the card
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res2 = run_videos(w2, entries[:2], models, cfg, workers=2, device=dev)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t2
+        assert not any(r.get("error") for r in res2)
+        assert stage_bytes(w2, names[:2]) == {n: got[n] for n in names[:2]}, \
+            "workers 2 wrote other bytes than workers 1"
+
+        # 4. keep_going over an entry one frame short (the others resume)
+        vid, box, frames = entries[0]
+        bad = (dict(vid, video="synth_short"), box, frames[:-1])
+        kg = run_videos(w1, entries + [bad], models, cfg, keep_going=True, device=dev)
+        assert "ValueError" in kg[3].get("error", "") and not os.path.exists(kg[3]["result"])
+        assert not any(r.get("error") for r in kg[:3])
+        assert stage_bytes(w1, names) == got, "keep_going changed the other videos"
+        try:
+            run_videos(w1, entries + [bad], models, cfg, device=dev)
+        except ValueError as e:
+            assert "in-memory frames" in str(e)
+        else:
+            raise AssertionError("an entry one frame short did not stop the sweep")
+        log("staged sweep: the resumed sweep wrote nothing; with seq-NMS's files deleted only "
+            "they were written again (same bytes, no A or F launch); workers 2 == 1 byte for "
+            "byte; keep_going marked the entry one frame short failed and completed the other "
+            "three; without keep_going it raised")
+
+    # 5. staged vs fused, tiny float32 models on the card
+    errs = {label: matched_staged_vs_fused(dev, vary)
+            for label, vary in (("default", False), ("varying slot layout", True))}
+    log("staged vs fused (tiny f32 models, tests/test_fused_parity.py's matched configuration) "
+        "on the card: the same (frame, class) keys and counts, worst (score, box) "
+        + ", ".join(f"{k} ({v[0]:.2e}, {v[1]:.2e} px)" for k, v in errs.items())
+        + " within rtol 1e-4 and atol 1e-5 / 1e-3")
+
+    fps = n_frames / wall
+    direct_two = sum(secs[:2])
+    log(f"staged sweep on {card}: {n_frames} frames in {wall:.3f} s = {fps:.2f} frames/s "
+        f"(run_videos, workers 1), against phase 10's fused sweep {ctx['fps']:.2f} frames/s "
+        f"on the same videos; stage walls summed over {len(names)} videos: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stage_walls.items())
+        + f" (the rest, {wall - sum(stage_walls.values()):.3f} s, is the runner's proto "
+        f"writes and reads); the direct chain {sum(secs):.3f} s; workers 2 over the "
+        f"{names[0]} and {names[1]} videos {wall2:.3f} s against their direct chain "
+        f"{direct_two:.3f} s ({direct_two / wall2:.2f}x); resume {resume_s:.3f} s; peak device "
+        f"memory {peak / 2**20:.1f} MiB")
+    return launches
+
+
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
@@ -2240,10 +2549,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     phase_stream_engines(kernels, stream_models, stream_ctx)
     torch.cuda.synchronize()
-    phase_sweep(dev, kernels, slice_ctx, fps, card)
+    _, sweep_ctx = phase_sweep(dev, kernels, slice_ctx, fps, card)
     torch.cuda.synchronize()
     del stream_models, stream_ctx, slice_ctx
     chain_counts = phase_staged_chain(dev, kernels, staged_ctx, records["flow_level"])
+    torch.cuda.synchronize()
+    del staged_ctx
+    sweep_counts = phase_staged_sweep(dev, kernels, sweep_ctx, card)
     torch.cuda.synchronize()
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
@@ -2252,6 +2564,8 @@ def main(argv=None) -> int:
     for name, rec in records.items():
         rec["launches"] = own_path[name][name]
     records["flow_level"]["launches_staged_chain"] = chain_counts["flow_level"]
+    for name in ("flow_level", "track_scan"):
+        records[name]["launches_staged_sweep"] = sweep_counts[name]
     rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -29,7 +29,8 @@ output boxes scaled back up to native pixels).
 - The ``pipeline`` tool with weights (``--engine fused --device cpu
   --eval``): its protos equal a direct ``run_videos_fused`` call byte for
   byte, and the printed mAP is ``vid_map`` of them; what the port does not
-  run yet raises.
+  run yet raises, with the staged engine (the default) before any stage
+  file is written.
 """
 
 import contextlib
@@ -347,12 +348,16 @@ def test_pipeline_config_matches_jax_tool(dataset, cli_run, tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("flags, error", [
-    ([], "Queue 1, item 1"),  # --engine staged, the default
-    (["--engine", "fused", "--multihost"], "Queue 1, item 5"),
+    (["--engine", "fused", "--multihost"], "Queue 1, item 4"),
     (["--engine", "fused", "--snap_weight", "0.5"], "not ported yet"),
     (["--engine", "fused", "--tubelet_boxes"], "not ported yet"),
     (["--engine", "fused", "--template_eta", "0.1"], "not ported yet"),
-], ids=["staged", "multihost", "snap_weight", "tubelet_boxes", "template_eta"])
+    # the staged engine (the default) refuses before any stage file exists
+    (["--snap_weight", "0.5"], "snapping .* not ported yet"),
+    (["--template_eta", "0.1"], "EMA templates .* not ported yet"),
+    (["--flow_preset", "accurate"], "flow pyramid .* not ported yet"),
+], ids=["multihost", "snap_weight", "tubelet_boxes", "template_eta", "staged_snap_weight",
+        "staged_template_eta", "staged_flow_preset_accurate"])
 def test_pipeline_tool_refuses_what_is_not_ported(dataset, tmp_path, flags, error):
     root, _ = dataset
     with pytest.raises(NotImplementedError, match=error):

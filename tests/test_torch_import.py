@@ -68,6 +68,38 @@ def test_imports_with_jax_blocked():
     assert res.stdout.strip() == f"ok {len(MODULES) + len(EXTRA)}"
 
 
+# an entry point and what it imports when it runs (its lazy imports), each
+# loaded alone: the staged runner chains every stage of video/
+ENTRY_POINTS = {
+    "staged_runner": ["vdetlib_tpu_torch.pipeline.runner"],
+    "pipeline_tool": ["vdetlib_tpu_torch.cli.pipeline_tool", "vdetlib_tpu_torch.dist.sharding",
+                      "vdetlib_tpu_torch.nn.presets", "vdetlib_tpu_torch.pipeline.checkpoint",
+                      "vdetlib_tpu_torch.pipeline.fused_runner", "vdetlib_tpu_torch.weights",
+                      "vdetlib_tpu_torch.evaluation.vid_map",
+                      "vdetlib_tpu_torch.evaluation.calibration"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_imports_with_jax_blocked(name):
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, *ENTRY_POINTS[name]],
+        capture_output=True, text=True, cwd=PKG.parent, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == f"ok {len(ENTRY_POINTS[name])}"
+
+
+def test_staged_runner_imports_the_stages():
+    """The runner's stage functions are the port's own (video/*)."""
+    from vdetlib_tpu_torch.pipeline import runner
+
+    for fn in (runner.det_vid, runner.mgp, runner.track_from_det,
+               runner.perturb_rescore_track_proto, runner.tubelet_rescore,
+               runner.seq_nms_video, runner.FrameLoader, runner.proto_dump):
+        assert fn.__module__.startswith("vdetlib_tpu_torch."), fn
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"],
                          ids=lambda p: p.name)
 def test_no_jax_import_statement(path):

@@ -2,19 +2,22 @@
 
 Counterpart of ``python -m vdetlib_tpu pipeline``, with the same flags and
 defaults plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the
-CPU with the kernels' plain versions). ``--engine fused`` runs each video
+CPU with the kernels' plain versions). ``--engine staged`` (the default)
+runs each video through the staged stages (``pipeline/runner.py``), a JSON
+proto at every stage boundary with per-stage resume-by-existence,
+``--staged_workers`` videos at once; ``--engine fused`` runs each video
 through the fused pipeline (``pipeline/fused_runner.py``) with
-resume-by-existence, ``--fused_group`` and ``--keep_going``; ``--eval``
-computes the VID mAP against the annotation protos. Weights come from
-``--detector_weights`` / ``--tracker_weights`` (checkpoints of the port;
-convert a JAX one with ``scripts/convert_orbax_checkpoint.py``), else they
-are random, drawn from ``--seed``.
+resume-by-existence and ``--fused_group``. Both take ``--keep_going``;
+``--eval`` computes the VID mAP against the annotation protos. Weights come
+from ``--detector_weights`` / ``--tracker_weights`` (checkpoints of the
+port; convert a JAX one with ``scripts/convert_orbax_checkpoint.py``), else
+they are random, drawn from ``--seed``.
 
-Not ported yet: ``--engine staged`` (the default, as in JAX: ROADMAP.md
-Queue 1 item 1, the staged runner) and ``--multihost`` (item 5) raise
-before anything loads;
-``--snap_weight`` > 0, ``--tubelet_boxes`` and ``--template_eta`` > 0 raise
-when the pipeline is built.
+Not ported yet: ``--multihost`` (ROADMAP.md Queue 1) raises before anything
+loads; ``--snap_weight`` > 0, ``--template_eta`` > 0 and ``--flow_preset
+accurate`` raise before any stage file is written with the staged engine,
+and when the pipeline is built (or, for the flow preset, run) with the
+fused one, which also refuses ``--tubelet_boxes``.
 
 Dataset layout (as produced by ``gen_synth``): ``<data>/NAME.vid.json`` +
 ``NAME.box.json`` (+ optional ``NAME.annot.json`` for --eval). The frames
@@ -53,11 +56,13 @@ def main(argv=None) -> int:
                    help="scale-adaptive tracking: NCC scales per step (1 = off)")
     p.add_argument("--stages", default="detect,mgp,track,rescore,seq_nms",
                    help="comma list; insert 'perturb' after track to enable tubelet box "
-                        "perturbation (staged engine only)")
+                        "perturbation + detector max-pooling")
     p.add_argument("--perturb_n", type=int, default=8,
                    help="perturbations per tubelet box (perturb stage)")
     p.add_argument("--tubelet_boxes", action="store_true",
-                   help="T-CNN tubelet-box semantics (not ported yet)")
+                   help="T-CNN tubelet-box semantics: live track boxes with no matched "
+                        "detection enter the det set (staged engine; the fused engine does "
+                        "not run it yet)")
     p.add_argument("--anchor_thresh", type=float, default=0.3,
                    help="min det score to seed a track (TrackOptions)")
     p.add_argument("--track_conf", type=float, default=0.5,
@@ -81,13 +86,14 @@ def main(argv=None) -> int:
     p.add_argument("--multihost", action="store_true",
                    help="multi-host sweep (not ported yet)")
     p.add_argument("--engine", default="staged", choices=["staged", "fused"],
-                   help="staged = JSON proto at every stage boundary (not ported yet); "
+                   help="staged = JSON proto at every stage boundary (per-stage resume); "
                         "fused = the fused pipeline per video, same final protos")
     p.add_argument("--fused_group", type=int, default=1,
                    help="fused engine: videos per group (the port runs a group's videos one "
                         "after another; results equal to 1, byte for byte)")
     p.add_argument("--staged_workers", type=int, default=1,
-                   help="staged engine: videos in flight at once")
+                   help="staged engine: videos in flight at once, on threads (outputs "
+                        "unchanged; 2 ran slower than 1 on an H100, PERF.md)")
     p.add_argument("--keep_going", action="store_true",
                    help="sweep mode: log-and-skip videos that fail (exit code 1 if any "
                         "failed; failed videos are retried on rerun)")
@@ -100,12 +106,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device to run on")
     args = p.parse_args(argv)
-    if args.engine == "staged":
-        raise NotImplementedError(
-            "the staged runner is not ported yet (ROADMAP.md Queue 1, item 1); "
-            "run with --engine fused")
     if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 5)")
+        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 4)")
 
     import torch
 
@@ -114,7 +116,7 @@ def main(argv=None) -> int:
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
     from vdetlib_tpu_torch.pipeline.checkpoint import load_params
     from vdetlib_tpu_torch.pipeline.fused_runner import run_videos_fused
-    from vdetlib_tpu_torch.pipeline.runner import Models, PipelineConfig
+    from vdetlib_tpu_torch.pipeline.runner import Models, PipelineConfig, run_videos
     from vdetlib_tpu_torch.protos import proto_load
     from vdetlib_tpu_torch.utils.log import get_logger
     from vdetlib_tpu_torch.video.detect import DetectOptions
@@ -170,8 +172,12 @@ def main(argv=None) -> int:
     for vf in vid_files:
         bf = vf.replace(".vid.json", ".box.json")
         inputs.append((proto_load(vf), proto_load(bf) if os.path.exists(bf) else None))
-    results = run_videos_fused(args.workdir, inputs, models, cfg, group_size=args.fused_group,
-                               keep_going=args.keep_going)
+    if args.engine == "fused":
+        results = run_videos_fused(args.workdir, inputs, models, cfg,
+                                   group_size=args.fused_group, keep_going=args.keep_going)
+    else:
+        results = run_videos(args.workdir, inputs, models, cfg, workers=args.staged_workers,
+                             keep_going=args.keep_going, device=args.device)
     failed = [r for r in results if r.get("error")]
     if failed:
         get_logger("pipeline").warning("%d/%d videos failed: %s", len(failed), len(results),

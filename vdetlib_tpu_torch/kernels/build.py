@@ -8,6 +8,13 @@ edited kernel or header rebuilds and an unchanged one is reused;
 delete ``vdetlib_tpu_torch/_build/`` to force a rebuild. Nothing here runs
 at import time: the CPU tests import every module on a machine with no
 ``nvcc``.
+
+Threads of one process (the staged runner's ``workers``) may ask for the
+same kernel at once: each kernel has a lock that ``build`` holds from its
+existence check to its rename and ``load`` holds around its first call, so
+one ``nvcc`` runs and every caller gets its library. Across processes the
+temporary file carries the process and thread ids and the rename is
+atomic, so a loader never sees a partial library.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -73,6 +81,9 @@ KERNELS = {
     ),
 }
 
+# one lock a kernel, reentrant: ``load`` holds it around ``build``
+_LOCKS = {name: threading.RLock() for name in KERNELS}
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -115,19 +126,20 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source exists."""
     so = library_path(name)
-    if so.is_file():
+    with _LOCKS[name]:
+        if so.is_file():
+            return so
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        (_, extra) = KERNELS[name]
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{res.stdout}\n{res.stderr}")
+        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    (_, extra) = KERNELS[name]
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{res.stdout}\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
-    return so
 
 
 def build_all() -> dict[str, Path]:
@@ -138,9 +150,14 @@ def build_all() -> dict[str, Path]:
         return dict(zip(KERNELS, pool.map(build, KERNELS)))
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str):
     """Build (if needed) and load kernel ``name``; returns its typed C function."""
+    with _LOCKS[name]:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str):
     ((symbol, argtypes), _) = KERNELS[name]
     lib = ctypes.CDLL(str(build(name)))
     fn = getattr(lib, symbol)
