@@ -17,8 +17,12 @@ Phases, each synchronised and each fatal on failure:
    named ``<name>_kernel``) and the wrapper's host time per call:
    A, flow level: 32, 63, 95 and 255 pairs of 60×80 bf16 (the stream's
    chunk, the fused slice's buckets, a 256-frame video) and 95 pairs of
-   90×120 (the staged MGP over phase 8's 96 native 360×480 frames),
-   box-shift tolerance mean < 0.05 px, max < 0.5 px at each; B, grouped NMS: 256
+   90×120 (the staged MGP over phase 8's 96 native 360×480 frames), and
+   its float32 path at search 3 at the "accurate" pyramid's level shapes
+   for 240×320 frames (63 and 255 pairs of 240×320, 120×160 and 60×80) and
+   95 pairs of 360×480 (the staged MGP's finest level), its bf16 device
+   time at P = 255 printed beside PERF.md's; box-shift tolerance mean <
+   0.05 px, max < 0.5 px at each; B, grouped NMS: 256
    frames × 192 slots with 30 class groups (the fused dedup), and 32 and
    960 problems of 192 slots with one group (the stream's MGP dedup for
    one class and for a chunk's 32 frames × 30 classes); C, batched NMS:
@@ -147,12 +151,30 @@ Phases, each synchronised and each fatal on failure:
    wall summed over the videos (``StageMetrics``), the ``workers`` 2 wall
    beside the same videos' direct chain, and the peak device memory.
 
+13. options: detection snapping (0.5), tubelet boxes and the "accurate"
+   flow pyramid, with EMA templates (template_eta 0.1) and then with three
+   scales in their place, at the ``base`` model's full width: phase 5's
+   pipeline over its 64- and 50-frame videos (kernel A 6 times a video, F
+   never; in a control run without snapping and EMA F at least once a
+   video), printed in frames/s beside phase 5's rate; the torch scan's ms
+   for phase 3's 48-step round (snapping with EMA, three scales) beside
+   F's; phase 10's loaded models through ``run_videos`` and
+   ``run_videos_fused`` with every option over two videos (A 6 times a
+   video, F never; each staged file equal to the stages called one by
+   one, byte for byte); the tiny float32 pipeline with every option, card
+   == CPU within phase 4's bounds, and its staged chain == its fused
+   pipeline (both fixtures of phase 12); the stream at the tool's defaults
+   with EMA templates over 64 frames, fused == host bit for bit at strides
+   1 and 2, and the tiny stream with EMA at both strides and engines, card
+   == CPU over 12 frames.
+
 Around each of phases 5–8, 11 and 12 the kernels' launch counters are
 zeroed just before and read just after; a kernel's ``launches`` in the
 record is the count from its own path (A, B: fused slice; C: stream; D:
 frame NMS; E, F: staged path); A's record also holds
-``launches_staged_chain`` (phase 11) and its ``mgp_shape`` times, A's and
-F's ``launches_staged_sweep`` (phase 12). B–E are then ranked by their
+``launches_staged_chain`` (phase 11), its ``mgp_shape`` times and its
+``float32_shapes`` times (phase 3), A's and F's ``launches_staged_sweep``
+(phase 12); phase 13 counts its own runs apart. B–E are then ranked by their
 device loss over phases 5–8, launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -501,15 +523,91 @@ def flow_case(dev, times):
     mgp_shape = {k: m[k] for k in ("ms", "device_ms", "host_us", "bound_ms", "bound_by",
                                    "max_abs_err")}
     mgp_shape["shape"] = [STAGED_T - 1, NATIVE_HW[0] // 4, NATIVE_HW[1] // 4]
+    log(f"kernel flow_level bf16 at P=255: device {dev_by_p[255]:.5f} ms against PERF.md's "
+        f"{PERF_A_BF16_255:.5f} ({dev_by_p[255] / PERF_A_BF16_255 - 1:+.1%}; the float32 path "
+        f"shares the bf16 kernel's code: within 5% expected)")
+    f32, f32_err, f32_plain, flow_video_ms = flow_f32_case(dev)
+    worst = max(worst, f32_err)
     times.append(f"flow_level kernel {t['ms']:.4f} device {t['device_ms']:.5f} plain "
                  f"{plain_ms:.4f} bound {t['bound_ms']:.4f} (P={P}; by P: wall {ms_by_p}, "
                  f"device {dev_by_p}; MGP {tuple(mgp_shape['shape'])}: wall {m['ms']:.4f}, "
-                 f"device {m['device_ms']:.5f}, bound {m['bound_ms']:.6f})")
+                 f"device {m['device_ms']:.5f}, bound {m['bound_ms']:.6f}; float32 levels: "
+                 + ", ".join(f"{k} device {v['device_ms']:.5f} bound {v['bound_ms']:.6f}"
+                             for k, v in f32.items())
+                 + f"; float32 plain at {FLOW_F32_PLAIN}: {f32_plain:.4f})")
     return dict(name="flow_level", route="cuda", source="vdetlib_tpu_torch/csrc/flow_level.cu",
                 replaces="vdetlib_tpu/kernels/flow_pallas.py:104", max_abs_err=worst, ms=t["ms"],
                 device_ms=t["device_ms"], host_us=t["host_us"], ms_by_p=ms_by_p,
-                device_ms_by_p=dev_by_p, mgp_shape=mgp_shape, plain_ms=plain_ms,
-                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+                device_ms_by_p=dev_by_p, mgp_shape=mgp_shape, float32_shapes=f32,
+                float32_plain_ms=f32_plain, flow_video_ms=flow_video_ms, plain_ms=plain_ms,
+                bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
+
+
+# the "accurate" pyramid's float32 levels for 240×320 frames (full, half,
+# quarter) at the fused slice's 63 pairs and a 256-frame video's 255, and
+# the finest level of the staged MGP's 96 native 360×480 frames; search 3
+# (the pyramid's default), radius 3
+PYRAMID_SHAPES = tuple((P, H >> lvl, W >> lvl) for P in (63, 255) for lvl in range(3))
+FLOW_F32_PLAIN = (63, H, W)  # where the plain version is timed
+PERF_A_BF16_255 = 0.30567  # PERF.md §6, kernel A's device ms at P = 255 (bf16)
+
+
+def flow_f32_case(dev):
+    """Kernel A's float32 path against its plain version at the pyramid's
+    level shapes (``PYRAMID_SHAPES``) and at the staged MGP's finest level
+    (95 × 360×480): the box shifts of the objects' boxes within mean < 0.05,
+    max < 0.5 full-resolution px; each timed (``kernel_times``) beside its
+    bound. Returns ({"PxHxW": times}, the worst shift error, the plain
+    version's ms at ``FLOW_F32_PLAIN``, {preset: ``flow_video`` wall ms of
+    64 frames})."""
+    from vdetlib_tpu_torch.kernels import flow as tflow
+    from vdetlib_tpu_torch.kernels import flow_level as kl
+
+    search, radius = 3, 3
+    per_shift = 2 + 2 * (2 * radius) + 1 + 15  # as in flow_check
+    sv = synth(256, seed=0)
+    levels = [tflow.to_gray(torch.from_numpy(sv.frames).to(dev))]
+    for _ in range(2):
+        levels.append(tflow._avg_pool2(levels[-1]))
+    native = staged_video(NATIVE_HW)
+    shapes = [(P, h, w, levels[i % 3], sv.gt_boxes) for i, (P, h, w) in enumerate(PYRAMID_SHAPES)]
+    shapes.append((STAGED_T - 1, *NATIVE_HW,
+                   tflow.to_gray(torch.from_numpy(native.frames).to(dev)), native.gt_boxes))
+    recs, worst, plain_ms = {}, 0.0, None
+    for P, h, w, gray, gt in shapes:
+        assert gray.shape[1:] == (h, w)
+        scale = h / (NATIVE_HW[0] if gt is native.gt_boxes else H)  # level / frame
+        i1, i2 = gray[:P].contiguous(), gray[1:P + 1].contiguous()
+        got = kl.flow_level(i1, i2, search=search, radius=radius)
+        want = kl._flow_level(i1, i2, search, radius)
+        torch.cuda.synchronize()
+        boxes = torch.from_numpy(gt[:, :P].transpose(1, 0, 2).copy()).to(dev)
+        valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
+        d = (tflow.mean_flow_in_boxes(got, boxes * scale, valid)
+             - tflow.mean_flow_in_boxes(want, boxes * scale, valid)).abs() / scale
+        err, mean = float(d.max()), float(d.mean())
+        assert math.isfinite(err) and mean < 0.05 and err < 0.5, \
+            f"flow kernel (float32) disagrees at {(P, h, w)}"
+        worst = max(worst, err)
+        t = kernel_times(lambda: kl.flow_level(i1, i2, search=search, radius=radius),
+                         "flow_level_kernel", iters=10)
+        t["bound_ms"], t["bound_by"] = bound(i1.numel() * 4 * 2 + got.numel() * 4,
+                                             P * h * w * (2 * search + 1) ** 2 * per_shift)
+        t["max_abs_err"] = err
+        recs[f"{P}x{h}x{w}"] = t
+        log(f"kernel flow_level float32 P={P} {(h, w)} s={search}: {fmt_times(t)} (bound "
+            f"{t['bound_ms']:.6f} by {t['bound_by']}); box-shift err mean {mean:.6f} max "
+            f"{err:.6f} px (tolerance mean < 0.05, max < 0.5)")
+        if (P, h, w) == FLOW_F32_PLAIN:
+            plain_ms = cuda_ms(lambda: kl._flow_level(i1, i2, search, radius), iters=3)
+    frames = torch.from_numpy(sv.frames[:64]).to(dev)  # the fused slice's bucket
+    walls = {preset: cuda_ms(lambda: tflow.flow_video(frames, preset=preset, upsample=False),
+                             iters=10) for preset in ("accurate", "fastest")}
+    log(f"flow_video of 64 frames at {(H, W)} on the card, wall per call: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in walls.items())
+        + " (accurate: 3 float32 levels of A, the upsampling and warps; fastest: one bf16 level)")
+    return recs, worst, plain_ms, walls
 
 
 NMS_THRESH = 0.3  # the engines' default nms_thresh
@@ -1015,8 +1113,9 @@ def track_scan_case(dev, times):
 # ---------------------------------------------------------------- phase 4
 
 
-def tiny_models(dev, seed=0):
-    """The tiny preset (C=4) and the tracker in float32, seeded, on ``dev``."""
+def tiny_models(dev, seed=0, **trk_kw):
+    """The tiny preset (C=4) and the tracker in float32, seeded, on ``dev``;
+    ``trk_kw`` sets other ``TrackerConfig`` fields (EMA templates, scales)."""
     from vdetlib_tpu_torch.nn.presets import detector_preset
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
     from vdetlib_tpu_torch.weights import init_detector, init_tracker
@@ -1026,17 +1125,18 @@ def tiny_models(dev, seed=0):
     det.head.dtype = det.head.fc0.dtype = torch.float32
     with torch.no_grad():
         det.head.bbox.weight.mul_(0.1)  # a trained regressor's delta scale
-    trk_cfg = TrackerConfig(dtype=torch.float32)
+    trk_cfg = TrackerConfig(dtype=torch.float32, **trk_kw)
     trk = init_tracker(trk_cfg, torch.Generator().manual_seed(seed + 1), device=dev)
     return det, trk, trk_cfg
 
 
-def tiny_pipeline(dev, seed=0, **kw):
+def tiny_pipeline(dev, seed=0, trk_kw=None, **kw):
     """The tiny fused pipeline at 96×128 in float32 (detector and tracker) on
-    ``dev``; ``kw`` sets other ``FusedConfig`` fields."""
+    ``dev``; ``kw`` sets other ``FusedConfig`` fields, ``trk_kw`` other
+    ``TrackerConfig`` fields."""
     from vdetlib_tpu_torch.pipeline.fused import FusedConfig, make_fused_pipeline
 
-    det, trk, trk_cfg = tiny_models(dev, seed)
+    det, trk, trk_cfg = tiny_models(dev, seed, **(trk_kw or {}))
     cfg = FusedConfig(**{**dict(image_hw=(96, 128), detect_batch=8, feat_batch=8,
                                 anchors_per_round=4, max_tracks=8, max_paths=16, det_budget=24,
                                 out_budget=24, score_thresh=0.2, anchor_thresh=0.26), **kw})
@@ -1078,12 +1178,13 @@ def compare_outputs(got, want):
     return worst
 
 
-def tiny_stream(dev, frames, rois, **kw):
+def tiny_stream(dev, frames, rois, trk_kw=None, **kw):
     """The tiny float32 stream (chunk 8, 16 proposals, 6 slots) on ``dev``;
-    ``kw`` sets other ``StreamOptions`` (the engine, the track stride)."""
+    ``kw`` sets other ``StreamOptions`` (the engine, the track stride),
+    ``trk_kw`` other ``TrackerConfig`` fields."""
     from vdetlib_tpu_torch.video.stream import StreamOptions, stream_video
 
-    det, trk, trk_cfg = tiny_models(dev)
+    det, trk, trk_cfg = tiny_models(dev, **(trk_kw or {}))
     opts = StreamOptions(chunk=8, max_rois=16, num_classes=4, track_slots=6, seed_thresh=0.26,
                          max_paths=20, **kw)
     chunks = (frames[s:s + 8] for s in range(0, len(frames), 8))
@@ -2244,11 +2345,13 @@ def direct_staged_chain(models, cfg, entries, dev, out_dir):
     return secs
 
 
-def matched_staged_vs_fused(dev, varying_layout):
+def matched_staged_vs_fused(dev, varying_layout, snap_weight=0.0, tubelet_boxes=False,
+                            flow_preset="fast", trk_kw=None):
     """tests/test_torch_staged_runner.py's staged-vs-fused check on ``dev``:
     phase 4's tiny float32 models, tests/test_fused_parity.py's matched
     configuration, video and proposals (frames in memory), ``run_video``
-    against the fused pipeline. Returns (worst score, worst box) error."""
+    against the fused pipeline; the options as named (``trk_kw``: other
+    ``TrackerConfig`` fields). Returns (worst score, worst box) error."""
     import tempfile
 
     from vdetlib_tpu_torch.data.synth import SynthConfig, make_video, vid_proto_in_memory
@@ -2274,18 +2377,19 @@ def matched_staged_vs_fused(dev, varying_layout):
         h = rng.uniform(8, 60, R_)
         rois[t] = np.stack([x1, y1, np.minimum(x1 + w, hw[1] - 1),
                             np.minimum(y1 + h, hw[0] - 1)], axis=1)
-    det, trk, trk_cfg = tiny_models(dev)
+    det, trk, trk_cfg = tiny_models(dev, **(trk_kw or {}))
     st, window, bg = (0.26, 2, 0.7) if varying_layout else (0.005, 1, 1.0)
     cfg = PipelineConfig(
         detect=DetectOptions(batch_size=4, max_rois=R_, image_hw=hw, score_thresh=st),
         mgp=MGPOptions(window=window, score_decay=0.9, nms_thresh=0.3, max_boxes=budget,
-                       num_classes=K, flow_preset="fast"),
+                       num_classes=K, flow_preset=flow_preset),
         track=TrackOptions(max_tracks=6, anchors_per_round=3, anchor_thresh=0.3,
                            conf_thresh=0.5, cover_thresh=0.5, batch_size=4, image_hw=hw,
-                           frame_stride=1),
+                           frame_stride=1, snap_weight=snap_weight),
         tracker_cfg=trk_cfg,
         rescore=RescoreOptions(match_thresh=0.5, top_ratio=0.5, boost="max", bg_decay=bg,
-                               max_boxes=budget, num_classes=K, max_tracks=6),
+                               max_boxes=budget, num_classes=K, max_tracks=6,
+                               tubelet_boxes=tubelet_boxes),
         link=LinkOptions(link_thresh=0.5, suppress_thresh=0.3, max_paths=8, rescore="avg",
                          max_boxes=budget, num_classes=K, min_score=0.0, backend="device"),
     )
@@ -2457,6 +2561,242 @@ def phase_staged_sweep(dev, kernels, ctx, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+OPTION_LENGTHS = VIDEO_LENGTHS[:2]  # phase 5's 64- and 50-frame videos (one bucket)
+# the options of every run of phase 13 (both engines): detection snapping,
+# tubelet boxes and the "accurate" flow pyramid; with EMA templates, then
+# with three scales in their place
+OPTIONS = dict(snap_weight=0.5, tubelet_boxes=True, flow_preset="accurate")
+EMA = dict(template_eta=0.1)
+SCALES = dict(num_scales=3)
+STREAM_OPTION_T = 64  # two full stream chunks
+
+
+def fused_option_run(dev, kernels, det, trk, trk_cfg, fcfg, videos, label, need_f):
+    """Phase 5's pipeline with ``fcfg`` and ``trk_cfg`` over ``videos``:
+    every output finite, tracks and paths found; kernel A 6 times a video
+    (3 pyramid levels, 2 flow directions), F at least once a video where
+    ``need_f``, else never. Returns (frames/s, launches)."""
+    from vdetlib_tpu_torch.pipeline.fused import fused_to_protos, make_fused_pipeline
+
+    pipe = make_fused_pipeline(det, trk, trk_cfg, fcfg)
+    zero_counts(kernels)
+    wall, n_frames = 0.0, 0
+    for i, (frames, rois, t_valid, roi_mask, fids) in enumerate(videos):
+        args = [torch.from_numpy(a).to(dev) for a in (frames, rois, roi_mask)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = pipe(args[0], args[1], t_valid, args[2])
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        n_frames += t_valid
+        floats = [out.det_boxes, out.det_scores, out.final_scores, out.track_boxes,
+                  out.track_conf, out.tubelet_stats]
+        assert all(bool(torch.isfinite(x).all()) for x in floats), f"{label}: non-finite output"
+        assert int(out.n_tracks) >= 1 and bool((out.path_ids >= 0).any()), f"{label}: no tracks"
+        det_proto, tubes = fused_to_protos(out, fids, f"opt{i}")
+        assert len(det_proto["detections"]) > 0 and len(tubes["tracks"]) > 0
+    launches = read_counts(kernels, f"fused slice, {label} (phase 13)", ("flow_level",))
+    n = len(videos)
+    assert launches["flow_level"] == 6 * n, \
+        f"{label}: kernel A launched {launches['flow_level']} times, not 6 a video"
+    if need_f:
+        assert launches["track_scan"] >= n, f"{label}: kernel F did not launch every video"
+    else:
+        assert launches["track_scan"] == 0, f"{label}: kernel F launched outside its contract"
+    return n_frames / wall, launches
+
+
+def torch_scan_rounds(dev, records):
+    """The folded scan's plain version (the scan of every option run) on
+    phase 3's 48-step round (the staged tracker's features, 8 anchors):
+    ms a round frozen (phase 3), with snapping and EMA templates, and with
+    three scales, beside kernel F's."""
+    from vdetlib_tpu_torch.kernels import track_scan as kf
+    from vdetlib_tpu_torch.nn.tracker_net import extract_template
+
+    _, trk, cfg = base_models(dev)
+    sv = staged_video(NATIVE_HW)
+    with torch.no_grad():
+        feats = staged_features(trk, sv.frames, dev)
+    Ts = feats.shape[0]
+    rng = np.random.default_rng(7)
+    ats = torch.from_numpy(rng.integers(0, Ts, A)).to(dev)
+    k = np.arange(A) % sv.gt_boxes.shape[0]
+    boxes = torch.from_numpy(sv.gt_boxes[k, 2 * ats.cpu().numpy()].astype(np.float32)).to(dev)
+    tpl = extract_template(feats[ats], boxes, cfg)
+    n = 16  # candidate dets a frame, jittered ground truth
+    db = sv.gt_boxes[np.arange(n) % sv.gt_boxes.shape[0]][:, ::2].transpose(1, 0, 2)
+    db = db + rng.normal(0, 3, db.shape)
+    snap = (torch.from_numpy(db.astype(np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(0.3, 1, (Ts, n)).astype(np.float32)).to(dev),
+            torch.ones((Ts, n), dtype=torch.bool, device=dev))
+    ema = dataclasses.replace(cfg, **EMA)
+    with torch.no_grad():
+        snap_ema = cuda_ms(lambda: kf.track_scan_plain(feats, ats, boxes, tpl, ema, 0.5,
+                                                       snap=snap), iters=2, warmup=1)
+        scales = cuda_ms(lambda: kf.track_scan_plain(feats, ats, boxes, tpl,
+                                                     dataclasses.replace(cfg, **SCALES), 0.5),
+                         iters=2, warmup=1)
+    f = records["track_scan"]
+    log(f"torch scan, one {Ts}-step round of {2 * A} lanes over {tuple(feats.shape)}: frozen "
+        f"{f['plain_ms']:.2f} ms (phase 3), snapping + EMA templates {snap_ema:.2f} ms, three "
+        f"scales {scales:.2f} ms; kernel F {f['ms']:.4f} ms wall, {f['device_ms']:.5f} ms "
+        f"device (phase 3)")
+    return {"snap_ema_ms": snap_ema, "scales3_ms": scales}
+
+
+def option_sweep_config(anchor_thresh):
+    """Phase 12's staged sweep config (the pipeline tool's stage defaults)
+    with every option: snapping, EMA templates, tubelet boxes, the pyramid."""
+    cfg = staged_sweep_config(anchor_thresh)
+    return dataclasses.replace(
+        cfg, mgp=dataclasses.replace(cfg.mgp, flow_preset=OPTIONS["flow_preset"]),
+        track=dataclasses.replace(cfg.track, snap_weight=OPTIONS["snap_weight"]),
+        tracker_cfg=dataclasses.replace(cfg.tracker_cfg, **EMA),
+        rescore=dataclasses.replace(cfg.rescore, tubelet_boxes=OPTIONS["tubelet_boxes"]))
+
+
+def option_sweeps(dev, kernels, ctx):
+    """Phase 10's loaded models through ``run_videos`` and
+    ``run_videos_fused`` with every option over the first two videos: the
+    staged files equal the stages called one by one, byte for byte; A 6
+    times a video in each engine, F never. Returns (staged, fused) frames/s."""
+    import os
+    import tempfile
+
+    from vdetlib_tpu_torch.pipeline.fused_runner import run_videos_fused
+    from vdetlib_tpu_torch.pipeline.runner import run_videos
+
+    models, entries = ctx["models"], ctx["entries"][:2]
+    cfg = option_sweep_config(ctx["anchor_thresh"])
+    names = [e[0]["video"] for e in entries]
+    n_frames = sum(len(e[0]["frames"]) for e in entries)
+    fps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine, run in (("staged", lambda d: run_videos(d, entries, models, cfg,
+                                                                 device=dev)),
+                            ("fused", lambda d: run_videos_fused(d, entries, models, cfg))):
+            zero_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(os.path.join(tmp, engine))
+            torch.cuda.synchronize()
+            fps[engine] = n_frames / (time.perf_counter() - t0)
+            assert not any(r.get("error") for r in res)
+            launches = read_counts(kernels, f"{engine} sweep with every option (phase 13)",
+                                   ("flow_level",))
+            assert launches["flow_level"] == 6 * len(entries), \
+                f"{engine} sweep: kernel A launched {launches['flow_level']} times"
+            assert launches["track_scan"] == 0, f"{engine} sweep: kernel F launched"
+            for r in res:
+                assert len(json.loads(open(r["final"]).read())["detections"]) > 0
+        got = stage_bytes(os.path.join(tmp, "staged"), names)
+        direct_staged_chain(models, cfg, entries, dev, os.path.join(tmp, "direct"))
+        want = stage_bytes(os.path.join(tmp, "direct"), names)
+        for n in names:
+            assert len(got[n]) == len(STAGE_FILES)
+            for k in STAGE_FILES:
+                assert got[n][k] == want[n][k], \
+                    f"option sweep {n}/{k}.json differs from the chain's"
+    log("staged sweep with every option == the stages called one by one, byte for byte, "
+        f"{len(names)} videos x {len(STAGE_FILES)} files")
+    return fps["staged"], fps["fused"]
+
+
+def phase_options(dev, kernels, card, slice_cfg, slice_fps, sweep_ctx, stream_opts, records):
+    """Phase 13: detection snapping, EMA templates, three scales, tubelet
+    boxes and the "accurate" flow pyramid at the base model's full width,
+    through the fused pipeline, both sweeps and the stream; the tiny float32
+    pipeline and stream with them, card against CPU."""
+    from vdetlib_tpu_torch.video.stream import stream_video
+
+    det, trk, trk_cfg = base_models(dev)
+    videos = [slice_inputs(T, seed) for seed, T in enumerate(OPTION_LENGTHS)]
+    fcfg = dataclasses.replace(slice_cfg, **OPTIONS)
+    rates, launches = {}, {}
+    for label, tc, need_f, cfg in (
+            ("snapping + EMA + tubelet boxes + accurate", dataclasses.replace(trk_cfg, **EMA),
+             False, fcfg),
+            ("snapping + 3 scales + tubelet boxes + accurate",
+             dataclasses.replace(trk_cfg, **SCALES), False, fcfg),
+            ("control: tubelet boxes + accurate, no snapping, eta 0", trk_cfg, True,
+             dataclasses.replace(fcfg, snap_weight=0.0))):
+        rates[label], launches[label] = fused_option_run(dev, kernels, det, trk, tc, cfg,
+                                                         videos, label, need_f)
+    n_frames = sum(OPTION_LENGTHS)
+    log(f"options on {card}: fused slice over {n_frames} frames, "
+        + ", ".join(f"{k} {v:.2f} frames/s" for k, v in rates.items())
+        + f"; phase 5's pipeline-only {slice_fps:.2f} frames/s (default options)")
+    scan = torch_scan_rounds(dev, records)
+    staged_fps, fused_fps = option_sweeps(dev, kernels, sweep_ctx)
+    n_sweep = sum(len(e[0]["frames"]) for e in sweep_ctx["entries"][:2])
+    log(f"options on {card}: staged sweep {staged_fps:.2f} frames/s, fused sweep "
+        f"{fused_fps:.2f} frames/s (every option, EMA; {n_sweep} frames); phase 10's fused "
+        f"sweep {sweep_ctx['fps']:.2f} frames/s (default options)")
+
+    # the tiny float32 pipeline with every option: card == CPU; staged == fused
+    frames, rois, roi_mask = tiny_inputs()
+    kw = dict(OPTIONS, snap_iou=0.4)
+    with torch.no_grad():
+        want = tiny_pipeline("cpu", trk_kw=EMA, **kw)(
+            *(torch.from_numpy(a) for a in (frames, rois)), None, torch.from_numpy(roi_mask))
+        got = tiny_pipeline(dev, trk_kw=EMA, **kw)(
+            *(torch.from_numpy(a).to(dev) for a in (frames, rois)), None,
+            torch.from_numpy(roi_mask).to(dev))
+    torch.cuda.synchronize()
+    worst = compare_outputs(got, want)
+    assert int(want.n_tracks) >= 1 and bool(want.det_mask.any())
+    errs = {label: matched_staged_vs_fused(dev, vary, snap_weight=0.5, tubelet_boxes=True,
+                                           flow_preset="accurate", trk_kw=EMA)
+            for label, vary in (("default", False), ("varying slot layout", True))}
+    log(f"tiny f32 pipeline with every option (EMA) on {dev} == CPU within phase 4's bounds "
+        f"(worst float diff {worst:.6f}); staged == fused: "
+        + ", ".join(f"{k} (score {v[0]:.2e}, box {v[1]:.2e} px)" for k, v in errs.items()))
+
+    # the stream at the tool's defaults with EMA templates: both engines,
+    # bit for bit, at strides 1 and 2; the tiny stream against the CPU
+    sv = synth(STREAM_OPTION_T, seed=10)
+    rois = make_rois(STREAM_OPTION_T, seed=10, r=stream_opts.max_rois)
+    ema_cfg = dataclasses.replace(trk_cfg, **EMA)
+    chunk_ms = {}
+    for stride in (1, 2):
+        res = {}
+        for engine in ("fused", "host"):
+            opts = dataclasses.replace(stream_opts, engine=engine, track_stride=stride)
+            zero_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[engine] = stream_video(det, trk, ema_cfg, (sv.frames[s:s + opts.chunk] for s in
+                                                           range(0, STREAM_OPTION_T, opts.chunk)),
+                                       rois, opts)
+            torch.cuda.synchronize()
+            chunk_ms[(engine, stride)] = (time.perf_counter() - t0) * 1e3 * opts.chunk \
+                / STREAM_OPTION_T
+            read_counts(kernels, f"stream, EMA, {engine} engine, stride {stride} (phase 13)",
+                        ("flow_level", "nms_grouped", "nms_batched"))
+        diff = stream_difference(res["fused"], res["host"])
+        assert diff is None, f"stream with EMA, stride {stride}: the engines differ in {diff}"
+        assert len(res["host"]["tracks"]) >= 1, "the stream with EMA seeded no track"
+    frames12, rois12, _ = tiny_inputs(seed=8, T=12)
+    for stride in (1, 2):
+        for engine in ("fused", "host"):
+            kw = dict(engine=engine, track_stride=stride)
+            w = compare_streams(tiny_stream(dev, frames12, rois12, trk_kw=EMA, **kw),
+                                tiny_stream("cpu", frames12, rois12, trk_kw=EMA, **kw))
+            log(f"tiny f32 stream with EMA, {engine} engine, stride {stride}, on {dev} == CPU "
+                f"(worst float diff {w:.6f})")
+    log(f"stream with EMA templates on {card} (the tool's defaults, {STREAM_OPTION_T} frames): "
+        f"fused == host bit for bit at strides 1 and 2; wall per {stream_opts.chunk}-frame "
+        f"chunk (seq-NMS included): " + ", ".join(f"{e} stride {s} {v:.1f} ms"
+                                                  for (e, s), v in chunk_ms.items()))
+    return dict(rates=rates, scan=scan, staged_fps=staged_fps, fused_fps=fused_fps,
+                launches=next(iter(launches.values())))
+
+
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
@@ -2551,12 +2891,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _, sweep_ctx = phase_sweep(dev, kernels, slice_ctx, fps, card)
     torch.cuda.synchronize()
+    slice_cfg, stream_opts = slice_ctx["cfg"], stream_ctx["opts"]
     del stream_models, stream_ctx, slice_ctx
     chain_counts = phase_staged_chain(dev, kernels, staged_ctx, records["flow_level"])
     torch.cuda.synchronize()
     del staged_ctx
     sweep_counts = phase_staged_sweep(dev, kernels, sweep_ctx, card)
     torch.cuda.synchronize()
+    t13 = time.perf_counter()
+    options = phase_options(dev, kernels, card, slice_cfg, fps, sweep_ctx, stream_opts, records)
+    torch.cuda.synchronize()
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
                 "nms_batched": stream_counts, "nms_sorted": nms_counts,
@@ -2566,6 +2911,8 @@ def main(argv=None) -> int:
     records["flow_level"]["launches_staged_chain"] = chain_counts["flow_level"]
     for name in ("flow_level", "track_scan"):
         records[name]["launches_staged_sweep"] = sweep_counts[name]
+        records[name]["launches_options"] = options["launches"][name]  # phase 13, EMA run
+    records["track_scan"]["options_plain_ms"] = options["scan"]
     rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

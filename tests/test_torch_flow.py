@@ -2,10 +2,13 @@
 and the MGP hop.
 
 Tolerances:
-- flow: the MGP box-shift tolerance of tests/test_mgp.py (mean-flow-in-box
-  differs by < 0.05 px on average and < 0.5 px at most). MGP consumes only
-  box means, and the port computes the cost volume in float32 where the
-  JAX XLA path squares and box-sums in bf16, so fields are not bitwise equal.
+- flow (one level, the "fastest" preset, and the "accurate" pyramid with
+  ``flow_pair`` at 2 and 3 levels): the MGP box-shift tolerance of
+  tests/test_mgp.py (mean-flow-in-box differs by < 0.05 px on average and
+  < 0.5 px at most). MGP consumes only box means, and the port computes the
+  cost volume in float32 where the JAX XLA path squares and box-sums the
+  bf16 level in bf16, so fields are not bitwise equal;
+- ``_warp_bilinear``: 1e-3 absolute on 0-255 values (float32 products).
 - mean_flow_in_boxes / _propagate_hop on an identical flow field: 1e-4 px
   (integral-image sums of up to a few thousand float32 terms).
 """
@@ -68,9 +71,49 @@ def test_flow_video_fastest_matches_jax(sv):
     assert d.mean() < 0.05 and d.max() < 0.5, (d.mean(), d.max())
 
 
-def test_flow_video_accurate_not_ported(sv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflow.flow_video(torch.from_numpy(sv.frames), preset="accurate")
+def test_flow_video_accurate_matches_jax(sv):
+    """The pyramid preset (3 float32 levels, search 3, full resolution);
+    ``upsample`` does not apply to it, as in JAX; one frame gives the empty
+    field."""
+    want = np.asarray(jflow.flow_video(jnp.asarray(sv.frames), preset="accurate"))
+    got = tflow.flow_video(torch.from_numpy(sv.frames), preset="accurate", upsample=False).numpy()
+    assert got.shape == want.shape == (5,) + HW + (2,)
+    boxes = sv.gt_boxes[:, :5].transpose(1, 0, 2)
+    d = _shift_err(got, want, boxes, tflow.flow_coord_scale("accurate"))
+    assert d.mean() < 0.05 and d.max() < 0.5, (d.mean(), d.max())
+    assert np.abs(want).max() > 0.5
+    one = tflow.flow_video(torch.from_numpy(sv.frames[:1]), preset="accurate")
+    assert one.shape == (0,) + HW + (2,) and one.dtype == torch.float32
+
+
+def test_warp_bilinear_matches_jax():
+    """Edge clamping and the gathers at floor and floor + 1, on flows that
+    leave the image: 1e-5 (the same float32 products)."""
+    rng = np.random.default_rng(2)
+    img = rng.uniform(0, 255, (3, 17, 23)).astype(np.float32)
+    flow = rng.normal(0, 6, (3, 17, 23, 2)).astype(np.float32)
+    flow[0, :2] = 40.0  # far outside the image
+    want = np.asarray(jax.vmap(jflow._warp_bilinear)(jnp.asarray(img), jnp.asarray(flow)))
+    got = tflow._warp_bilinear(torch.from_numpy(img), torch.from_numpy(flow)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-6)
+
+
+@pytest.mark.parametrize("levels, hw", [(2, (27, 37)), (3, (48, 64))])
+def test_flow_pair_matches_jax(sv, levels, hw):
+    """The coarse-to-fine pyramid at 2 and 3 levels, one at an odd frame
+    size (its coarser levels drop a row and a column)."""
+    frames = sv.frames[:3, :hw[0], :hw[1]]
+    gray = jflow.to_gray(jnp.asarray(frames))
+    want = np.asarray(jax.vmap(lambda a, b: jflow.flow_pair(a, b, levels=levels))(
+        gray[:-1], gray[1:]))
+    g = torch.from_numpy(np.array(gray))
+    got = tflow.flow_pair(g[:-1], g[1:], levels=levels).numpy()
+    assert got.shape == want.shape == (2,) + hw + (2,)
+    rng = np.random.default_rng(levels)
+    xy = rng.uniform(0, [hw[1] - 12, hw[0] - 12], (2, 6, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 12, (2, 6, 2))], -1).astype(np.float32)
+    d = _shift_err(got, want, boxes, 1.0)
+    assert d.mean() < 0.05 and d.max() < 0.5, (d.mean(), d.max())
 
 
 def test_gray_pool_and_box_mean_match_jax(sv):

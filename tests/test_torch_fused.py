@@ -189,3 +189,51 @@ def test_fused_padded_bucket_matches_unpadded(nets, runs):
     assert int(padded["n_tracks"]) == int(base["n_tracks"])
     assert not padded["det_mask"][T:].any()
     assert (padded["final_scores"][:, T:] <= 0).all()
+
+
+OPTIONS = dict(snap_weight=0.5, snap_iou=0.4, tubelet_boxes=True, flow_preset="accurate",
+               flow_levels=2)
+EMA = dict(template_eta=0.1, template_update_conf=0.3)
+
+
+def test_fused_options_match_jax(nets, runs):
+    """Every option of the fused pipeline at once — detection snapping, EMA
+    templates, tubelet boxes and the "accurate" flow pyramid — against JAX's
+    pipeline, end to end, at the bounds above. Each option changes the
+    port's output on this fixture (checked one at a time)."""
+    import dataclasses
+
+    jdet, jdp, jtrk, jtp, jtrk_cfg, _, _ = nets
+    frames, rois, roi_mask, _, _ = runs
+    # a gap: no proposal on one object at frames 2-5 (MGP's one-frame hops
+    # fill its ends), which the tracks bridge: the case tubelet boxes are for
+    gt = make_video(SynthConfig(num_frames=T, height=HW[0], width=HW[1], num_classes=C,
+                                seed=11)).gt_boxes[0]
+    roi_mask = roi_mask.copy()
+    for t in (2, 3, 4, 5):
+        ix = np.clip(np.minimum(rois[t, :, 2:], gt[t, 2:]) - np.maximum(rois[t, :, :2], gt[t, :2]),
+                     0, None).prod(1)
+        roi_mask[t] &= ix < 0.2 * np.prod(gt[t, 2:] - gt[t, :2])
+    n = f32_nets()
+    jcfg = dataclasses.replace(_cfg(jfused), **OPTIONS)
+    jpipe = jfused.make_fused_pipeline(jdet, jtrk, dataclasses.replace(jtrk_cfg, **EMA), jcfg)
+    want = _np(jpipe(jdp, jtp, jnp.asarray(frames), jnp.asarray(rois), None,
+                     jnp.asarray(roi_mask)))
+    tcfg = dataclasses.replace(_cfg(tfused), **OPTIONS)
+    ttrk_cfg = dataclasses.replace(n.ttrk_cfg, **EMA)
+
+    def port(cfg, trk_cfg):
+        with torch.no_grad():
+            return _np(tfused.make_fused_pipeline(n.tdet, n.ttrk, trk_cfg, cfg)(
+                _t(frames), _t(rois), None, _t(roi_mask)))
+
+    got = port(tcfg, ttrk_cfg)
+    _preconditions(frames, rois, roi_mask, want)
+    _compare(got, want)
+    for off, trk_cfg in ((dict(snap_weight=0.0), ttrk_cfg), ({}, n.ttrk_cfg),
+                         (dict(tubelet_boxes=False), ttrk_cfg),
+                         (dict(flow_preset="fastest"), ttrk_cfg)):
+        other = port(dataclasses.replace(tcfg, **off), trk_cfg)
+        assert any(not np.array_equal(other[k], got[k]) for k in got), off
+        if "tubelet_boxes" in off:  # track boxes fill slots the dets leave empty
+            assert got["det_mask"].sum() > other["det_mask"].sum()

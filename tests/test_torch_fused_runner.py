@@ -28,9 +28,10 @@ output boxes scaled back up to native pixels).
 - ``vid_map`` and ``rank_normalize`` equal the JAX functions to 1e-12.
 - The ``pipeline`` tool with weights (``--engine fused --device cpu
   --eval``): its protos equal a direct ``run_videos_fused`` call byte for
-  byte, and the printed mAP is ``vid_map`` of them; what the port does not
-  run yet raises, with the staged engine (the default) before any stage
-  file is written.
+  byte, and the printed mAP is ``vid_map`` of them; with detection
+  snapping, EMA templates, tubelet boxes or the "accurate" flow (either
+  engine) its final protos stay within the JAX bounds above against the
+  JAX tool's; ``--multihost`` (not ported yet) raises.
 """
 
 import contextlib
@@ -348,16 +349,8 @@ def test_pipeline_config_matches_jax_tool(dataset, cli_run, tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("flags, error", [
-    (["--engine", "fused", "--multihost"], "Queue 1, item 4"),
-    (["--engine", "fused", "--snap_weight", "0.5"], "not ported yet"),
-    (["--engine", "fused", "--tubelet_boxes"], "not ported yet"),
-    (["--engine", "fused", "--template_eta", "0.1"], "not ported yet"),
-    # the staged engine (the default) refuses before any stage file exists
-    (["--snap_weight", "0.5"], "snapping .* not ported yet"),
-    (["--template_eta", "0.1"], "EMA templates .* not ported yet"),
-    (["--flow_preset", "accurate"], "flow pyramid .* not ported yet"),
-], ids=["multihost", "snap_weight", "tubelet_boxes", "template_eta", "staged_snap_weight",
-        "staged_template_eta", "staged_flow_preset_accurate"])
+    (["--engine", "fused", "--multihost"], "Queue 1, item 3"),
+], ids=["multihost"])
 def test_pipeline_tool_refuses_what_is_not_ported(dataset, tmp_path, flags, error):
     root, _ = dataset
     with pytest.raises(NotImplementedError, match=error):
@@ -365,3 +358,46 @@ def test_pipeline_tool_refuses_what_is_not_ported(dataset, tmp_path, flags, erro
                             *flags])
     assert not any(p.name.endswith(".json") and p.name != "pipeline_config.json"
                    for p in tmp_path.rglob("*"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "fused", "--snap_weight", "0.5"],
+    ["--engine", "fused", "--tubelet_boxes"],
+    ["--engine", "fused", "--template_eta", "0.1"],
+    ["--snap_weight", "0.5"],
+    ["--template_eta", "0.1"],
+    ["--flow_preset", "accurate"],
+], ids=["snap_weight", "tubelet_boxes", "template_eta", "staged_snap_weight",
+        "staged_template_eta", "staged_flow_preset_accurate"])
+def test_pipeline_tool_options_match_jax_tool(nets, dataset, tmp_path, monkeypatch, flags):
+    """The options the port's tool once refused, through both tools with the
+    same float32 weights: each video's ``final.json`` within the bounds of
+    ``test_sweep_matches_jax``, the same tubelet count (the fused engine at
+    a bucket of 8 frames in both packages, as there)."""
+    import vdetlib_tpu.nn.detector as jdetector
+    import vdetlib_tpu_torch.weights as tweights
+
+    root, inputs = dataset
+    mp = monkeypatch
+    mp.setattr(jfr, "FusedEngine", functools.partial(jfr.FusedEngine, bucket=SMALL_BUCKET))
+    mp.setattr(tfr, "FusedEngine", functools.partial(tfr.FusedEngine, bucket=SMALL_BUCKET))
+    mp.setattr(jdetector, "init_detector", lambda *a, **kw: (nets.jdet, nets.jdp))
+    mp.setattr(jtrack, "init_tracker", lambda *a, **kw: (nets.jtrk, nets.jtp))
+    mp.setattr(tweights, "init_detector", lambda *a, **kw: nets.tdet)
+    mp.setattr(tweights, "init_tracker", lambda *a, **kw: nets.ttrk)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert j_pipeline_tool.main([str(root), str(tmp_path / "j"), *CLI_FLAGS, *flags]) == 0
+        assert pipeline_tool.main([str(root), str(tmp_path / "t"), *CLI_FLAGS, *flags,
+                                   "--device", "cpu"]) == 0
+    for vid, _ in inputs:
+        want = proto_load(str(tmp_path / "j" / vid["video"] / "final.json"))
+        got = proto_load(str(tmp_path / "t" / vid["video"] / "final.json"))
+        a, b = _index_dets(want), _index_dets(got)
+        assert set(a) == set(b) and len(a) > 0
+        for key in a:
+            assert len(a[key]) == len(b[key]), key
+            for (sa, ba), (sb, bb) in zip(a[key], b[key]):
+                assert abs(sa - sb) <= TOL_SCORE, (key, sa, sb)
+                np.testing.assert_allclose(bb, ba, atol=TOL_BOX, rtol=0, err_msg=str(key))
+        tw, tg = (proto_load(str(tmp_path / s / vid["video"] / "tubelets.json")) for s in "jt")
+        assert len(tw["tracks"]) == len(tg["tracks"]) > 0

@@ -5,10 +5,14 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
 
 - kernel A (flow level), P = 32 and 255 pairs of 60×80 bf16, 4 pairs of
   120×160 and one ragged 13×37 pair, each at search/radius (5, 3) and
-  (3, 1), and the staged MGP's 95 pairs of 90×120: the MGP box-shift
-  tolerance of tests/test_mgp.py (mean < 0.05 px, max < 0.5 px). Both
-  compute in float32; they differ in summation order and in the kernel's
-  pre-scaled exp2. ``flow_video`` of one frame launches nothing;
+  (3, 1), and the staged MGP's 95 pairs of 90×120; its float32 path at the
+  "accurate" pyramid's level shapes for 240×320 frames (63 pairs of
+  240×320, 120×160 and 60×80, 255 of 60×80, 3 of 240×320) at (3, 3),
+  (5, 3) and (2, 1): the MGP box-shift tolerance of tests/test_mgp.py
+  (mean < 0.05 px, max < 0.5 px). Both compute in float32; they differ in
+  summation order and in the kernel's pre-scaled exp2. ``flow_video`` of
+  one frame launches nothing; the "accurate" ``flow_video`` launches A
+  once a level and agrees with the CPU's;
 - kernel B (grouped NMS), 256 frames of 192 slots with 30 class groups, score
   ties, duplicates, invalid and padded slots (``chip_smoke.nms_problem``, the
   smoke run's generator): keep sets identical; and the cases its sorted,
@@ -45,7 +49,10 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
   response where P do not fit) adds or risks: A = 1 and 3, anchors at the
   first and last frame, boxes across the frame's edge, lanes that die, T = 1,
   C = 36 and 100, float32 features at Q = 20 and 23 and at C = 38, and
-  A = 17 and 34 (clusters of 2 and of 1 block a lane).
+  A = 17 and 34 (clusters of 2 and of 1 block a lane); ``track_batch``
+  launches F only where ``kernel_takes(cfg) and snap is None``: with
+  snapping, EMA templates or three scales it runs the plain scan on the
+  card, equal to the CPU's within the rollout bounds.
 
 Every test carries the ``cuda`` marker and needs a CUDA device; without one
 it skips (the decision is made in a fixture, so every worker collects the
@@ -400,6 +407,62 @@ def test_flow_kernel_matches_plain_version_box_shifts(cuda, P, H, W, search, rad
     assert float(want.abs().max()) > 0.5  # the field moves
 
 
+def _pyramid_levels(frames_u8, dev, levels=3):
+    """The "accurate" preset's float32 gray levels: full, half, quarter."""
+    g = [tflow.to_gray(torch.from_numpy(frames_u8).to(dev))]
+    for _ in range(levels - 1):
+        g.append(tflow._avg_pool2(g[-1]))
+    return g
+
+
+@pytest.mark.parametrize("search, radius", [(3, 3), (5, 3), (2, 1)])
+@pytest.mark.parametrize("P, level", [(63, 0), (63, 1), (63, 2), (255, 2), (3, 0)])
+def test_flow_kernel_float32_levels_match_plain_version(cuda, P, level, search, radius):
+    """Kernel A's float32 path at the "accurate" pyramid's level shapes for
+    240×320 frames (240×320, 120×160, 60×80) of a 64-frame video, at 255
+    pairs, and a 3-pair video; (3, 3) is the pyramid's compiled-in window,
+    (5, 3) the fast presets', (2, 1) the run-time kernel: the box-shift
+    tolerance on the level's grid, in full-resolution pixels."""
+    sv = _flow_video()
+    gray = _pyramid_levels(sv.frames[:P + 1], cuda)[level]
+    i1, i2 = gray[:-1].contiguous(), gray[1:].contiguous()
+    assert i1.dtype == torch.float32
+    before = kl.flow_level.launches
+    got = kl.flow_level(i1, i2, search=search, radius=radius)
+    torch.cuda.synchronize()
+    assert kl.flow_level.launches == before + 1
+    want = kl._flow_level(i1, i2, search, radius)
+    assert got.shape == want.shape == (P, 240 >> level, 320 >> level, 2)
+    pool = 2 ** level
+    boxes = torch.from_numpy(sv.gt_boxes[:, :P].transpose(1, 0, 2).copy()).to(cuda) / pool
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=cuda)
+    d = (tflow.mean_flow_in_boxes(got, boxes, valid)
+         - tflow.mean_flow_in_boxes(want, boxes, valid)).abs() * pool
+    assert float(d.mean()) < 0.05 and float(d.max()) < 0.5, (float(d.mean()), float(d.max()))
+    assert float(want.abs().max()) > 0.5
+
+
+def test_flow_video_accurate_launches_a_level_and_matches_the_cpu(cuda):
+    """On the card the pyramid runs every level through kernel A (one launch
+    a level, never the plain version) and agrees with the CPU's pyramid
+    (the plain level) by box shifts at full resolution."""
+    sv = _flow_video()
+    frames = sv.frames[:9]
+    before = kl.flow_level.launches
+    got = tflow.flow_video(torch.from_numpy(frames).to(cuda), preset="accurate")
+    torch.cuda.synchronize()
+    assert kl.flow_level.launches == before + 3
+    want = tflow.flow_video(torch.from_numpy(frames), preset="accurate")
+    assert got.shape == want.shape == (8, 240, 320, 2)
+    boxes = torch.from_numpy(sv.gt_boxes[:, :8].transpose(1, 0, 2).copy())
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool)
+    d = (tflow.mean_flow_in_boxes(got.cpu(), boxes, valid)
+         - tflow.mean_flow_in_boxes(want, boxes, valid)).abs()
+    assert float(d.mean()) < 0.05 and float(d.max()) < 0.5, (float(d.mean()), float(d.max()))
+    one = tflow.flow_video(torch.from_numpy(frames[:1]).to(cuda), preset="accurate")
+    assert one.shape == (0, 240, 320, 2) and kl.flow_level.launches == before + 3
+
+
 def test_flow_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     """The kernel tiles the columns, so no width is too wide for it; it
     refuses windows beyond a block's shared memory, more pairs than the grid
@@ -419,7 +482,9 @@ def test_flow_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     a = torch.zeros((2, 8, 8), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
-        kl.flow_level(a, a)  # float32, not bf16
+        kl.flow_level(a.double(), a.double())  # bf16 or float32 only
+    with pytest.raises(TypeError):
+        kl.flow_level(a, a.to(torch.bfloat16))  # one type for both
     with pytest.raises(ValueError):
         kl.flow_level(a.to(torch.bfloat16), a.cpu().to(torch.bfloat16))
     b = torch.zeros((1, 600, 4), device=cuda)
@@ -648,6 +713,59 @@ def test_scan_kernel_edge_cases(cuda, scan_inputs, case):
             any(int(ba[:, k].sum()) > 1 and not ba[0, k] for k in range(ba.shape[1]))
 
 
+def _track_batch_both(cfg, feats, dev, snap=None):
+    """``track_batch`` on the card and on the CPU (16 steps, 8 anchors);
+    returns (card, cpu, F launches on the card)."""
+    from vdetlib_tpu_torch.video.track import track_batch
+
+    ats = torch.tensor([0, 3, 7, 12, 15, 9, 5, 1])
+    boxes = torch.from_numpy(scan_inputs_boxes(ats.numpy()))
+    before = kf.track_scan_kernel.launches
+    with torch.no_grad():
+        got = track_batch(cfg, feats, ats.to(dev), boxes.to(dev), 0.5,
+                          snap=None if snap is None else tuple(a.to(dev) for a in snap))
+        torch.cuda.synchronize()
+        launches = kf.track_scan_kernel.launches - before
+        want = track_batch(cfg, feats.cpu(), ats, boxes, 0.5, snap=snap)
+    return [g.cpu() for g in got], want, launches
+
+
+def scan_inputs_boxes(ats):
+    sv = make_video(SynthConfig(num_frames=32, height=360, width=480, num_objects=6, seed=4))
+    return sv.gt_boxes[np.arange(len(ats)) % sv.gt_boxes.shape[0], 2 * ats].astype(np.float32)
+
+
+@pytest.mark.parametrize("option", ["snap", "eta", "scales3", "none"])
+def test_track_batch_takes_kernel_f_only_in_its_contract(cuda, scan_inputs, option):
+    """Snapping, EMA templates and three scales run the plain scan on the
+    card (no launch of F, as the JAX package runs its XLA scan for them)
+    and agree with the CPU's run: alive equal, live boxes < 0.5 px, live
+    conf < 5e-3 over 16 steps (the cross-device rounding of the convolutions
+    and pooling, amplified by the rollout); a snap-free, eta-0 call
+    launches F once."""
+    import dataclasses
+
+    cfg, sv, feats = scan_inputs
+    snap = None
+    if option == "snap":
+        rng = np.random.default_rng(5)
+        db = sv.gt_boxes[:, ::2].transpose(1, 0, 2) + rng.normal(0, 3, (16, 6, 4))
+        snap = (torch.from_numpy(db.astype(np.float32)),
+                torch.from_numpy(rng.uniform(0.3, 1, (16, 6)).astype(np.float32)),
+                torch.ones((16, 6), dtype=torch.bool))
+    elif option == "eta":
+        cfg = dataclasses.replace(cfg, template_eta=0.1, template_update_conf=0.3)
+    elif option == "scales3":
+        cfg = dataclasses.replace(cfg, num_scales=3)
+    got, want, launches = _track_batch_both(cfg, feats, cuda, snap)
+    assert launches == (1 if option == "none" else 0)
+    gb, gc, ga = got
+    wb, wc, wa = want
+    assert torch.equal(ga, wa) and bool(wa.any())
+    assert float((gb - wb).abs()[wa].max()) < 0.5
+    assert float((gc - wc).abs()[wa].max()) < 5e-3
+
+
 def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda, scan_inputs):
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
 
@@ -657,6 +775,8 @@ def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda, scan_inputs):
     tpl = torch.zeros((1, 8, 8, 96), device=cuda)
     with pytest.raises(ValueError):
         kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(num_scales=3), 0.5)
+    with pytest.raises(ValueError):
+        kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(template_eta=0.1), 0.5)
     with pytest.raises(TypeError):
         kf.track_scan_kernel(feats.half(), ats, box, tpl, cfg, 0.5)
     with pytest.raises(ValueError):

@@ -9,8 +9,9 @@ CPU, the port on the CPU with kernel A's plain version. Bounds:
   2 and 1): masks and hops exactly, live boxes within 0.5 px (the bf16 flow
   level sums in another order; box-shift bound of tests/test_mgp.py),
   scores within 1e-6 (the same float32 products on the host);
-- ``mgp`` with and without its NMS: the same (frame, class) entry
-  sequence, boxes within 0.5 px, scores within 1e-5; the ``mgp`` tool on
+- ``mgp`` with and without its NMS, and with the "accurate" flow pyramid:
+  the same (frame, class) entry sequence, boxes within 0.5 px, scores
+  within 1e-5; the ``mgp`` tool on
   ``--device cpu`` against the JAX tool over the same protos and frames;
 - ``perturb_rescore_arrays`` and ``perturb_rescore_track_proto`` for the
   same seed: probabilities within 2e-3 (the detector bound of
@@ -95,6 +96,19 @@ def test_mgp_matches_jax(video, run_nms, window):
     _compare_det_protos(got, want)
     if not run_nms:  # every propagated copy is an entry
         assert len(got["detections"]) > len(det["detections"])
+
+
+def test_mgp_accurate_preset_matches_jax(video):
+    """``mgp`` with the pyramid flow ("accurate": full-resolution float32
+    levels, ``flow_levels``/``flow_search`` honoured) at the bounds above."""
+    sv, vid, det = video
+    kw = dict(window=1, num_classes=C, max_boxes=N, flow_preset="accurate", flow_levels=2)
+    want = jmgp.mgp(vid, det, jmgp.MGPOptions(**kw), frames_u8=sv.frames)
+    got = tmgp.mgp(vid, det, tmgp.MGPOptions(**kw), frames_u8=sv.frames, device="cpu")
+    _compare_det_protos(got, want)
+    fastest = tmgp.mgp(vid, det, tmgp.MGPOptions(**dict(kw, flow_preset="fastest")),
+                       frames_u8=sv.frames, device="cpu")
+    assert fastest != got
 
 
 def test_mgp_of_one_frame_matches_jax(video):

@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's host modules behave the same.
 
 - ``data.synth``: ``make_video`` is bit-identical (frames, boxes, classes)
-  for several seeded configurations, and so are ``box_proto``,
-  ``det_proto_from_gt`` and ``vid_proto_in_memory``;
+  for several seeded configurations of both tiers (the hard tier's
+  visibility, occlusion and distractor arrays too), and so are
+  ``box_proto``, ``det_proto_from_gt`` and ``vid_proto_in_memory``;
 - ``protos``: the array bridges give equal arrays and protos, the codec
   round-trips protos written by either package (plain and gzip), and the
   accessors agree;
@@ -48,6 +49,31 @@ def test_make_video_and_its_protos_are_bit_identical(kw):
     assert tsynth.det_proto_from_gt(t, drop_rate=0.2, dropout_windows=1) == \
         jsynth.det_proto_from_gt(j, drop_rate=0.2, dropout_windows=1)
     assert tsynth.vid_proto_in_memory(t) == jsynth.vid_proto_in_memory(j)
+
+
+HARD_CONFIGS = [
+    dict(num_frames=8, height=96, width=128, seed=11),
+    dict(num_frames=6, height=96, width=128, seed=2, num_occluders=0, appearance_drift=0.6,
+         class_coded_appearance=False, min_size=20, max_size=40),
+    dict(num_frames=5, seed=4, num_classes=31, crossing_paths=False, camera_jitter=0.0,
+         num_distractors=5, distractor_on=(1, 3), scale_rate=0.02),
+]
+
+
+@pytest.mark.parametrize("kw", HARD_CONFIGS, ids=range(len(HARD_CONFIGS)))
+def test_hard_tier_is_byte_identical(kw):
+    """The hard tier (``hard_config``): frames, boxes, visibility, occlusion
+    and the distractor arrays byte for byte, and the protos derived from it."""
+    j = jsynth.make_video(jsynth.hard_config(**kw), video="h")
+    t = tsynth.make_video(tsynth.hard_config(**kw), video="h")
+    assert t.config.is_hard and j.config.is_hard
+    for name in ("frames", "gt_boxes", "gt_classes", "gt_visible", "gt_occluded",
+                 "distractor_boxes", "distractor_on", "distractor_classes"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), name
+    assert not t.gt_visible.all() or t.gt_occluded.max() > 0  # the tier's effects show
+    assert tsynth.box_proto(t) == jsynth.box_proto(j)
+    assert tsynth.det_proto_from_gt(t) == jsynth.det_proto_from_gt(j)
 
 
 def test_array_bridges_and_accessors_agree():

@@ -9,12 +9,14 @@ detector and the float32 tracker with converted weights. Bounds:
   pyramid) entry by entry: the bounds of tests/test_torch_detector.py for
   the float32 backbone, probabilities 2e-3 and boxes 0.25 px in network
   pixels; the (frame, class) sequence of the entries exactly;
-- ``track_from_det`` at strides 1 and 2: track count, frames and anchors
-  exactly, boxes 0.5 px (the float32 ``track_batch`` bound of
-  tests/test_torch_track.py) and scores 5e-3 (the conf bound of
-  tests/test_track.py's scan comparisons: a rollout of 9 steps drifts);
-- the ``detect`` and ``track`` tools on ``--device cpu`` against the JAX
-  tools with the same weights, under the same bounds.
+- ``track_from_det`` at strides 1 and 2, without and with detection
+  snapping: track count, frames and anchors exactly, boxes 0.5 px (the
+  float32 ``track_batch`` bound of tests/test_torch_track.py) and scores
+  5e-3 (the conf bound of tests/test_track.py's scan comparisons: a
+  rollout of 9 steps drifts);
+- the ``detect`` and ``track`` tools (``track`` also with
+  ``--snap_weight``) on ``--device cpu`` against the JAX tools with the
+  same weights, under the same bounds.
 """
 
 import jax
@@ -209,6 +211,19 @@ def test_track_from_det_matches_jax(trackers, tmp_path, stride):
     assert len(got["tracks"]) > 3  # more than one round ran
 
 
+def test_track_from_det_three_scales_matches_jax(trackers, tmp_path):
+    """Scale-adaptive tracking (``num_scales`` 3) through the whole stage,
+    each round's scan the plain loop, as JAX runs its XLA scan."""
+    jmodel, jparams, tmodel = trackers
+    _, vid, det = _track_inputs(tmp_path, "tr3")
+    kw = dict(max_tracks=7, anchors_per_round=3, batch_size=4)
+    want = jtrack.track_from_det(jmodel, jparams, vid, det, jtn.TrackerConfig(num_scales=3),
+                                 jtrack.TrackOptions(**kw))
+    got = ttrack.track_from_det(tmodel, vid, det, TrackerConfig(num_scales=3),
+                                ttrack.TrackOptions(**kw))
+    _compare_track_protos(got, want)
+
+
 def test_track_from_det_in_memory_frames_equal_the_files(trackers, tmp_path):
     from vdetlib_tpu_torch.data.loader import FrameLoader
 
@@ -222,11 +237,22 @@ def test_track_from_det_in_memory_frames_equal_the_files(trackers, tmp_path):
                                  frames_u8=frames) == want
 
 
-def test_track_from_det_unported_options_raise(trackers, tmp_path):
-    _, vid, det = _track_inputs(tmp_path, "trs")
-    with pytest.raises(NotImplementedError):
-        ttrack.track_from_det(trackers[2], vid, det, TrackerConfig(),
-                              ttrack.TrackOptions(snap_weight=0.5))
+@pytest.mark.parametrize("stride", [1, 2])
+def test_track_from_det_snap_weight_matches_jax(trackers, tmp_path, stride):
+    """Detection snapping: each round's scan blends the boxes toward the
+    anchor candidates (per-frame arrays padded to 8 slots) as JAX's does."""
+    jmodel, jparams, tmodel = trackers
+    _, vid, det = _track_inputs(tmp_path, f"trs{stride}")
+    kw = dict(max_tracks=7, anchors_per_round=3, frame_stride=stride, batch_size=4,
+              snap_weight=0.5)
+    want = jtrack.track_from_det(jmodel, jparams, vid, det, jtn.TrackerConfig(),
+                                 jtrack.TrackOptions(**kw))
+    got = ttrack.track_from_det(tmodel, vid, det, TrackerConfig(), ttrack.TrackOptions(**kw))
+    _compare_track_protos(got, want)
+    plain = ttrack.track_from_det(tmodel, vid, det, TrackerConfig(),
+                                  ttrack.TrackOptions(**dict(kw, snap_weight=0.0)))
+    boxes = lambda tp: [[e["bbox"] for e in t] for t in tp["tracks"]]  # noqa: E731
+    assert boxes(plain) != boxes(got), "snapping changed no box"
 
 
 def test_detect_tool_matches_jax_tool(dets, tmp_path, monkeypatch):
@@ -273,8 +299,12 @@ def test_track_tool_matches_jax_tool(trackers, tmp_path, monkeypatch):
     assert tcli.main(argv + [str(tmp_path / "t.json")] + flags + ["--device", "cpu"]) == 0
     _compare_track_protos(proto_load(str(tmp_path / "t.json")),
                           proto_load(str(tmp_path / "j.json")))
-    with pytest.raises(NotImplementedError):
-        tcli.main(argv + [str(tmp_path / "t2.json"), "--device", "cpu", "--snap_weight", "0.5"])
+    # detection snapping through both tools
+    snap = flags + ["--snap_weight", "0.5", "--snap_iou", "0.4"]
+    assert jcli.main(argv + [str(tmp_path / "j2.json")] + snap) == 0
+    assert tcli.main(argv + [str(tmp_path / "t2.json")] + snap + ["--device", "cpu"]) == 0
+    _compare_track_protos(proto_load(str(tmp_path / "t2.json")),
+                          proto_load(str(tmp_path / "j2.json")))
     # --weights loads a checkpoint into the tool's model (here its own weights)
     from vdetlib_tpu_torch.pipeline.checkpoint import save_params
 

@@ -21,15 +21,18 @@ The weights are the float32 tiny nets of ``tests/torch_fused_common.py``
 - **Staged vs fused in the port**, case for case as
   ``tests/test_fused_parity.py`` (its matched configuration, its video and
   proposals, its bounds): scores within rtol 1e-4 and atol 1e-5, boxes
-  within rtol 1e-4 and atol 1e-3, the same keys, counts and track count.
-  The port's fused pipeline does not run tubelet boxes yet (ROADMAP.md
-  Queue 1): for those cases it must refuse, and the staged chain's
-  rescoring and linking are held, under the same bounds, against JAX's
-  staged chain resumed from the port's ``detect``, ``mgp`` and ``track``
-  files (JAX's own test holds that chain equal to JAX's fused pipeline).
+  within rtol 1e-4 and atol 1e-3, the same keys, counts and track count,
+  also with detection snapping, EMA templates, the "accurate" flow pyramid
+  and tubelet boxes. In the tubelet-box cases the staged chain's rescoring
+  and linking are also held, under the same bounds, against JAX's staged
+  chain resumed from the port's ``detect``, ``mgp`` and ``track`` files
+  (JAX's own test holds that chain equal to JAX's fused pipeline).
   Compared from the start, the two frameworks' "fast" flows differ by up
   to 0.18 px after two MGP hops on the varying-layout fixture, and one
   dedup decision near the NMS threshold flips.
+- The options the staged engine once refused (snapping, EMA templates, the
+  "accurate" flow) through ``run_videos`` against JAX's, every stage file
+  within the JAX bounds above.
 """
 
 import contextlib
@@ -372,24 +375,38 @@ def test_in_memory_frames_equal_frames_from_disk(tcfg, models, dataset, sweep, t
     assert not os.path.exists(tmp_path / "dr")
 
 
-@pytest.mark.parametrize("change, error", [
-    (lambda c: dataclasses.replace(c, track=dataclasses.replace(c.track, snap_weight=0.5)),
-     "snapping"),
-    (lambda c: dataclasses.replace(c, tracker_cfg=dataclasses.replace(c.tracker_cfg,
-                                                                      template_eta=0.1)),
-     "EMA templates"),
-    (lambda c: dataclasses.replace(c, mgp=dataclasses.replace(c.mgp, flow_preset="accurate")),
-     "flow pyramid"),
+def _with(cfg, section, **kw):
+    return dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
+
+
+@pytest.mark.parametrize("section, kw, resume", [
+    ("track", dict(snap_weight=0.5, snap_iou=0.4), ("detect", "mgp")),
+    ("tracker_cfg", dict(template_eta=0.1, template_update_conf=0.3), ()),
+    ("mgp", dict(flow_preset="accurate", flow_levels=2), ()),
 ], ids=["snap_weight", "template_eta", "flow_preset_accurate"])
-def test_unported_options_refused_before_any_file(tcfg, models, dataset, tmp_path, change,
-                                                  error):
-    cfg = change(tcfg)
-    for kw in ({}, {"keep_going": True}, {"workers": 2}):
-        with pytest.raises(NotImplementedError, match=error):
-            trunner.run_videos(str(tmp_path / "s"), dataset[1], models, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=error):
-        trunner.run_video(str(tmp_path / "s"), *dataset[1][0], models, cfg, device="cpu")
-    assert list(tmp_path.iterdir()) == []
+def test_options_run_and_match_jax(tcfg, jcfg, models, jmodels, dataset, tmp_path, section, kw,
+                                   resume):
+    """The options the staged engine once refused run through ``run_videos``
+    and every stage file stays within the JAX bounds above. Snapping starts
+    JAX's chain from the port's ``detect`` and ``mgp`` files: a snap is a
+    threshold decision (IoU > ``snap_iou`` before the blend), and from the
+    start one of them sits on it (video 0, frame 5: IoU 0.3999 in the port,
+    just above 0.4 in JAX, after 1e-3 px of upstream difference), which
+    moves that track by 10.9 px."""
+    got = trunner.run_videos(str(tmp_path / "t"), dataset[1], models, _with(tcfg, section, **kw),
+                             device="cpu")
+    for (vid, _), pg in zip(dataset[1], got):
+        (tmp_path / "j" / vid["video"]).mkdir(parents=True)
+        for stage in resume:
+            shutil.copy(pg[stage], tmp_path / "j" / vid["video"])
+    want = jrunner.run_videos(str(tmp_path / "j"), dataset[1], jmodels,
+                              _with(jcfg, section, **kw))
+    for pg, pw in zip(got, want):
+        assert not pg.get("error") and not pw.get("error")
+        for stage in DET_FILES:
+            assert_dets_close(proto_load(pg[stage]), proto_load(pw[stage]), **JAX_TOL)
+        for stage in TRACK_FILES:
+            assert_tracks_close(proto_load(pg[stage]), proto_load(pw[stage]), JAX_TOL["box_tol"])
 
 
 # ---------------------------------------------------------------- staged vs fused
@@ -423,16 +440,17 @@ def matched(tmp_path_factory):
 
 
 def _matched_cfg(trk_cfg, tubelet_boxes=False, min_matched_frac=0.0, track_stride=1,
-                 score_thresh=0.005, mgp_window=1, bg_decay=1.0):
+                 score_thresh=0.005, mgp_window=1, bg_decay=1.0, snap_weight=0.0,
+                 flow_preset="fast"):
     """tests/test_fused_parity.py's matched configuration as a PipelineConfig."""
     return trunner.PipelineConfig(
         detect=tdetect.DetectOptions(batch_size=4, max_rois=PR, image_hw=HW,
                                      score_thresh=score_thresh, regress=True),
         mgp=tmgp.MGPOptions(window=mgp_window, score_decay=0.9, nms_thresh=0.3,
-                            max_boxes=BUDGET, num_classes=C, flow_preset="fast"),
+                            max_boxes=BUDGET, num_classes=C, flow_preset=flow_preset),
         track=ttrack.TrackOptions(max_tracks=6, anchors_per_round=3, anchor_thresh=0.3,
                                   conf_thresh=0.5, cover_thresh=0.5, batch_size=4, image_hw=HW,
-                                  frame_stride=track_stride),
+                                  frame_stride=track_stride, snap_weight=snap_weight),
         tracker_cfg=trk_cfg,
         rescore=trescore.RescoreOptions(match_thresh=0.5, top_ratio=0.5, boost="max",
                                         bg_decay=bg_decay, max_boxes=BUDGET, num_classes=C,
@@ -535,8 +553,7 @@ def test_fused_track_count_matches_staged(matched, models, nets):
 
 
 def test_fused_matches_staged_with_matched_frac_gate(matched, models, nets):
-    """The track-quality gate alone (the port's fused pipeline does not run
-    tubelet boxes; with them the gate is held against JAX's fused below)."""
+    """The track-quality gate alone (with tubelet boxes: below)."""
     cfg = _matched_cfg(nets.ttrk_cfg, min_matched_frac=0.4)
     staged_det, staged_tub, _ = _staged(matched, models, cfg)
     fused_det, fused_tub, _ = _fused(matched, models, cfg)
@@ -545,16 +562,17 @@ def test_fused_matches_staged_with_matched_frac_gate(matched, models, nets):
 
 
 def _tubelet_boxes_case(s, models, nets, cfg):
-    """The port's fused pipeline refuses tubelet boxes (ROADMAP.md Queue 1);
-    the staged chain's rescoring and linking with them equal JAX's staged
-    ones on the same inputs, which JAX's tests/test_fused_parity.py holds
-    equal to JAX's fused pipeline. Returns the staged final det_proto."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _fused(s, models, cfg)
+    """With tubelet boxes the port's fused pipeline equals its staged chain,
+    and the staged chain's rescoring and linking equal JAX's staged ones on
+    the same inputs, which JAX's tests/test_fused_parity.py holds equal to
+    JAX's fused pipeline. Returns the staged final det_proto."""
     staged_det, staged_tub, _ = _staged(s, models, cfg)
     jax_det, jax_tub = _jax_staged_from(s, nets, cfg, s["tmp"] / f"staged{_RUNS[0]}")
     assert_dets_close(staged_det, jax_det, **PARITY)
     assert len(staged_tub["tracks"]) == len(jax_tub["tracks"]) > 0
+    fused_det, fused_tub, _ = _fused(s, models, cfg)
+    assert_dets_close(fused_det, staged_det, **PARITY)
+    assert len(fused_tub["tracks"]) == len(staged_tub["tracks"])
     return staged_det
 
 
@@ -610,6 +628,29 @@ def test_fused_matches_staged_varying_roi_counts(matched, models, nets):
     staged_det, _, _ = _staged(s, models, cfg, box=box)
     fused_det, _, _ = _fused(s, models, cfg, rois=rois, roi_mask=roi_mask)
     assert_dets_close(fused_det, staged_det, **PARITY)
+
+
+@pytest.mark.parametrize("kw, trk", [
+    (dict(snap_weight=0.5), {}),
+    ({}, dict(template_eta=0.1, template_update_conf=0.3)),
+    (dict(snap_weight=0.5, track_stride=2), dict(template_eta=0.1, template_update_conf=0.3)),
+    (dict(flow_preset="accurate"), {}),
+    (dict(snap_weight=0.5, tubelet_boxes=True, flow_preset="accurate"),
+     dict(template_eta=0.1, template_update_conf=0.3)),
+], ids=["snap_weight", "template_eta", "snap_and_eta_stride2", "flow_preset_accurate",
+        "every_option"])
+def test_fused_matches_staged_with_options(matched, nets, kw, trk):
+    """Snapping, EMA templates and the flow pyramid: the fused pipeline
+    equals the staged chain case for case (snapping reads the same
+    candidate set, packed differently; ``snap_to_dets`` ignores the order)."""
+    trk_cfg = dataclasses.replace(nets.ttrk_cfg, **trk)
+    models = trunner.Models(nets.tdet, nets.ttrk)
+    cfg = _matched_cfg(trk_cfg, **kw)
+    staged_det, staged_tub, staged_trk = _staged(matched, models, cfg)
+    fused_det, fused_tub, out = _fused(matched, models, cfg)
+    assert_dets_close(fused_det, staged_det, **PARITY)
+    assert int(out.n_tracks) == len(staged_trk["tracks"]) > 0
+    assert len(staged_tub["tracks"]) == len(fused_tub["tracks"])
 
 
 def test_fused_matches_staged_multiscale_tracker(matched, nets):
@@ -745,8 +786,9 @@ def test_pipeline_config_matches_jax_tool(cli_run, jax_cli_run):
 
 
 def test_pipeline_tool_staged_tubelet_boxes(nets, dataset, models, tmp_path, monkeypatch):
-    """``--tubelet_boxes`` runs with the staged engine (the fused engine
-    refuses it: tests/test_torch_fused_runner.py)."""
+    """``--tubelet_boxes`` with the staged engine: the tool's files equal a
+    direct ``run_videos`` call's (both engines against JAX's tool:
+    tests/test_torch_fused_runner.py)."""
     root, inputs, _ = dataset
     rc, _ = _tool(nets, [str(root), str(tmp_path / "work"), *CLI_FLAGS, "--device", "cpu",
                          "--tubelet_boxes"], monkeypatch)

@@ -30,8 +30,6 @@ counts and slot layouts vary from frame to frame, and that the run seeds in
 several chunks, crosses chunk boundaries and backtracks.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -230,18 +228,16 @@ def test_stream_to_protos_matches_jax(runs):
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(template_eta=0.5), NotImplementedError),  # EMA templates: not ported yet
     (dict(track_stride=3), ValueError),  # the JAX engines take strides 1 and 2
     (dict(chunk=7, track_stride=2), ValueError),  # a chunk the stride does not divide
     (dict(engine="nope"), ValueError),
 ])
 @pytest.mark.parametrize("engine", ["fused", "host"])
 def test_unported_options_raise(nets, engine, kw, exc):
-    cfg, kw = nets["tcfg"], dict(kw)
-    if "template_eta" in kw:
-        cfg = dataclasses.replace(cfg, template_eta=kw.pop("template_eta"))
+    """Options the JAX engines refuse too (EMA templates run: see
+    tests/test_torch_stream_ema.py)."""
     with pytest.raises(exc):
-        tstream.stream_video(nets["tdet"], nets["ttrk"], cfg, iter(()), None,
+        tstream.stream_video(nets["tdet"], nets["ttrk"], nets["tcfg"], iter(()), None,
                              _opts(tstream, **{"engine": engine, **kw}))
 
 

@@ -35,6 +35,7 @@ from tests.torch_stream_common import (  # noqa: F401  (nets: a fixture)
     A,
     CH,
     R,
+    _assert_bit_equal,
     _chunks,
     _compare_protos,
     _compare_results,
@@ -259,19 +260,6 @@ def _seed_spy(monkeypatch):
 
     monkeypatch.setattr(tstream._TrackBook, "add_chunk", spy)
     return seeds
-
-
-def _assert_bit_equal(fused, host):
-    assert fused["num_frames"] == host["num_frames"]
-    for k in ("keep", "boxes", "scores", "path_ids", "seq_scores"):
-        np.testing.assert_array_equal(fused[k], host[k], err_msg=k)
-    assert set(fused["tracks"]) == set(host["tracks"])
-    for tid, hseg in host["tracks"].items():
-        fseg = fused["tracks"][tid]
-        assert [t for t, _, _ in fseg] == [t for t, _, _ in hseg], tid
-        np.testing.assert_array_equal(np.stack([b for _, b, _ in fseg]),
-                                      np.stack([b for _, b, _ in hseg]))
-        np.testing.assert_array_equal([s for _, _, s in fseg], [s for _, _, s in hseg])
 
 
 @pytest.mark.parametrize("stride", [1, 2])

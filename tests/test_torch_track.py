@@ -10,8 +10,8 @@ whole only over a short horizon in float32:
   1e-3 px, peak confidence to 1e-4 (float32 correlation; the search
   pooling rounds to bf16 in both packages);
 - ``track_batch`` over T=8 frames with float32 ``TrackerConfig``, stride 1
-  and 2 (with and without bucket padding): alive bits exact, conf to 1e-3,
-  boxes to 0.5 px.
+  and 2 (with and without bucket padding), and with EMA templates and
+  detection snapping: alive bits exact, conf to 1e-3, boxes to 0.5 px.
 """
 
 import jax
@@ -116,15 +116,35 @@ def test_track_batch_matches_jax(f32, stride, pad):
     assert live.sum() > 2 * K
 
 
-def test_track_batch_unported_options_raise(f32):
-    sv, _, _, tcfg, _, feats = f32
-    f = torch.from_numpy(feats)
-    a = torch.zeros(1, dtype=torch.int64)
-    b = torch.from_numpy(sv.gt_boxes[:1, 0])
-    with pytest.raises(NotImplementedError):
-        track_batch(TrackerConfig(dtype=torch.float32, template_eta=0.1), f, a, b, 0.5)
-    with pytest.raises(NotImplementedError):
-        track_batch(tcfg, f, a, b, 0.5, snap=(f, f, f))
+def test_track_batch_ema_and_snap_options_match_jax(f32):
+    """EMA templates and detection snapping (once refused by the port) run
+    and agree with JAX under the bounds above; tests/test_torch_track_options.py
+    holds each option alone, at stride 2 and on hard-tier videos."""
+    sv, jcfg, jmodel, _, _, feats = f32
+    K = sv.gt_boxes.shape[0]
+    anchor_t = np.array([0, 3, 7, 5, 6][:K])
+    boxes = np.stack([sv.gt_boxes[k, anchor_t[k]] for k in range(K)]).astype(np.float32)
+    rng = np.random.default_rng(4)
+    sb = (sv.gt_boxes.transpose(1, 0, 2) + rng.normal(0, 3, (T, K, 4))).astype(np.float32)
+    ss = rng.uniform(0.3, 1.0, (T, K)).astype(np.float32)
+    sv_ = np.ones((T, K), bool)
+    kw = dict(template_eta=0.1, template_update_conf=0.3)
+    jcfg = jtn.TrackerConfig(dtype=jnp.float32, **kw)
+    tcfg = TrackerConfig(dtype=torch.float32, **kw)
+    jb, jc, ja = jtrack.track_batch(jmodel, jcfg, jnp.asarray(feats), jnp.asarray(anchor_t),
+                                    jnp.asarray(boxes), 0.5,
+                                    snap=tuple(jnp.asarray(a) for a in (sb, ss, sv_)),
+                                    snap_iou=0.3, snap_weight=0.5)
+    with torch.no_grad():
+        tb, tc, ta = track_batch(tcfg, torch.from_numpy(feats), torch.from_numpy(anchor_t),
+                                 torch.from_numpy(boxes), 0.5,
+                                 snap=tuple(torch.from_numpy(a) for a in (sb, ss, sv_)),
+                                 snap_iou=0.3, snap_weight=0.5)
+    ja = np.asarray(ja)
+    np.testing.assert_array_equal(ta.numpy(), ja)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(tb.numpy()[ja], np.asarray(jb)[ja], atol=0.5, rtol=0)
+    assert ja.sum() > 2 * K
 
 
 @pytest.mark.parametrize("stride", [1, 2])

@@ -84,6 +84,20 @@ def _compare_results(got, want):
                                    atol=TOL_SCORE, rtol=0)
 
 
+def _assert_bit_equal(fused, host):
+    """The two engines' results equal to the last bit."""
+    assert fused["num_frames"] == host["num_frames"]
+    for k in ("keep", "boxes", "scores", "path_ids", "seq_scores"):
+        np.testing.assert_array_equal(fused[k], host[k], err_msg=k)
+    assert set(fused["tracks"]) == set(host["tracks"])
+    for tid, hseg in host["tracks"].items():
+        fseg = fused["tracks"][tid]
+        assert [t for t, _, _ in fseg] == [t for t, _, _ in hseg], tid
+        np.testing.assert_array_equal(np.stack([b for _, b, _ in fseg]),
+                                      np.stack([b for _, b, _ in hseg]))
+        np.testing.assert_array_equal([s for _, _, s in fseg], [s for _, _, s in hseg])
+
+
 def _preconditions(res, rois):
     assert res["num_frames"] % CH != 0  # a partial final chunk
     segs = res["tracks"].values()

@@ -13,11 +13,10 @@ from ``--detector_weights`` / ``--tracker_weights`` (checkpoints of the
 port; convert a JAX one with ``scripts/convert_orbax_checkpoint.py``), else
 they are random, drawn from ``--seed``.
 
-Not ported yet: ``--multihost`` (ROADMAP.md Queue 1) raises before anything
-loads; ``--snap_weight`` > 0, ``--template_eta`` > 0 and ``--flow_preset
-accurate`` raise before any stage file is written with the staged engine,
-and when the pipeline is built (or, for the flow preset, run) with the
-fused one, which also refuses ``--tubelet_boxes``.
+Both engines run every tracker, flow and rescoring option of the JAX tool:
+``--snap_weight``, ``--template_eta``, ``--track_scales``, ``--flow_preset
+accurate`` and ``--tubelet_boxes``. Not ported yet: ``--multihost``
+(ROADMAP.md Queue 1, item 3) raises before anything loads.
 
 Dataset layout (as produced by ``gen_synth``): ``<data>/NAME.vid.json`` +
 ``NAME.box.json`` (+ optional ``NAME.annot.json`` for --eval). The frames
@@ -50,8 +49,7 @@ def main(argv=None) -> int:
                    help="NCC scan advances every s-th frame, interpolating the rest; "
                         "1 = frame-exact reference semantics")
     p.add_argument("--template_eta", type=float, default=0.0,
-                   help="EMA template adaptation rate (0 = frozen anchor template; "
-                        "> 0 is not ported yet)")
+                   help="EMA template adaptation rate (0 = frozen anchor template)")
     p.add_argument("--track_scales", type=int, default=1,
                    help="scale-adaptive tracking: NCC scales per step (1 = off)")
     p.add_argument("--stages", default="detect,mgp,track,rescore,seq_nms",
@@ -61,14 +59,13 @@ def main(argv=None) -> int:
                    help="perturbations per tubelet box (perturb stage)")
     p.add_argument("--tubelet_boxes", action="store_true",
                    help="T-CNN tubelet-box semantics: live track boxes with no matched "
-                        "detection enter the det set (staged engine; the fused engine does "
-                        "not run it yet)")
+                        "detection enter the det set (both engines)")
     p.add_argument("--anchor_thresh", type=float, default=0.3,
                    help="min det score to seed a track (TrackOptions)")
     p.add_argument("--track_conf", type=float, default=0.5,
                    help="tracker termination confidence (TrackOptions)")
     p.add_argument("--snap_weight", type=float, default=0.0,
-                   help="detection snapping blend (0 = off; > 0 is not ported yet)")
+                   help="detection snapping blend (0 = off)")
     p.add_argument("--snap_iou", type=float, default=0.5,
                    help="min IoU for detection snapping (see --snap_weight)")
     p.add_argument("--stat_floor", type=int, default=0,
@@ -107,7 +104,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="torch device to run on")
     args = p.parse_args(argv)
     if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 4)")
+        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 3)")
 
     import torch
 

@@ -4,8 +4,9 @@ Counterpart of ``python -m vdetlib_tpu track``, with the same flags plus
 ``--device`` (default ``cuda``, where each round's scan is one launch of
 kernel F; ``--device cpu`` runs the plain loop). ``--weights`` loads a
 checkpoint of the port (``pipeline/checkpoint.py``); without it the weights
-are random, drawn from ``--seed``. Detection snapping (``--snap_weight`` > 0)
-is not ported yet (ROADMAP.md, Queue 1).
+are random, drawn from ``--seed``. With detection snapping (``--snap_weight``
+> 0) each round's scan runs the plain loop on the card too, as the JAX tool
+runs its XLA scan: kernel F has no snapping path.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def main(argv=None) -> int:
     p.add_argument("--cover_thresh", type=float, default=0.5)
     p.add_argument("--snap_weight", type=float, default=0.0,
                    help="detection snapping: blend tracked boxes toward the "
-                        "best overlapping same-frame detection (0 = off; not ported yet)")
+                        "best overlapping same-frame detection (0 = off)")
     p.add_argument("--snap_iou", type=float, default=0.5)
     p.add_argument("--image_hw", type=int, nargs=2, default=None)
     p.add_argument("--seed", type=int, default=0)

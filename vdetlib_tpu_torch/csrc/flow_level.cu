@@ -7,7 +7,10 @@
 // the shifted i2 (rows and columns clamped to the image edge) is box-filtered
 // over a (2r+1)^2 window with zero padding and divided by (2r+1)^2; a
 // soft-argmin over the shifts (temperature, f32 accumulators) gives the flow
-// (dx, dy) of each pixel. Inputs are bf16; all arithmetic is f32.
+// (dx, dy) of each pixel. Inputs are bf16 (the fast presets' reduced levels)
+// or f32 (the accurate pyramid's levels); all arithmetic is f32. The element
+// type enters only where the staging loads turn each value into f32 in
+// shared memory, so the two types share every line of the shift loop.
 //
 // What bounds it on an H100: float32 instructions and their latency, not
 // bytes. At P = 255 pairs of 60x80 the inputs are 4.9 MB and the output 9.8
@@ -41,10 +44,10 @@
 // Rows outside the image add nothing (a warp-uniform skip); columns outside
 // the image add nothing (a per-lane tap mask, only in tiles at the image's
 // left or right edge). The ring needs the window sizes at compile time:
-// (search, radius) = (5, 3), the presets' window, has that specialisation;
-// any other search and radius take the run-time kernel, which sums each
-// window directly from shared memory and updates its soft-argmin online with
-// one exponential per shift.
+// (search, radius) = (5, 3), the fast presets' window, and (3, 3), the
+// accurate pyramid's, have that specialisation; any other search and radius
+// take the run-time kernel, which sums each window directly from shared
+// memory and updates its soft-argmin online with one exponential per shift.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,6 +60,10 @@ constexpr int TILE_W = 32;  // columns of a tile: one per lane
 __device__ __forceinline__ float bf16_to_f32(uint16_t v) {
     return __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
+
+// an input element as f32: bf16 arrives as its raw 16-bit word
+__device__ __forceinline__ float to_f32(uint16_t v) { return bf16_to_f32(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
 
 // 2^x in one SFU instruction (subnormal results flush to zero)
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -98,25 +105,26 @@ __device__ __forceinline__ Smem smem_of(int tile_h, int nw, int search, int radi
     return s;
 }
 
-__device__ void stage(const uint16_t* __restrict__ i1, const uint16_t* __restrict__ i2,
+template <typename T>
+__device__ void stage(const T* __restrict__ i1, const T* __restrict__ i2,
                       const Smem& s, const Tile& t, int H, int W, int search, int radius) {
     const int c1 = TILE_W + 2 * radius, r1 = t.th + 2 * radius;
     const int c2 = c1 + 2 * search, r2 = r1 + 2 * search;
-    const uint16_t* p1 = i1 + static_cast<size_t>(t.pair) * H * W;
-    const uint16_t* p2 = i2 + static_cast<size_t>(t.pair) * H * W;
+    const T* p1 = i1 + static_cast<size_t>(t.pair) * H * W;
+    const T* p2 = i2 + static_cast<size_t>(t.pair) * H * W;
 #pragma unroll 4
     for (int e = threadIdx.x; e < r1 * c1; e += blockDim.x) {
         const int r = e / c1;
         const int y = t.y0 - radius + r;
         const int x = t.x0 - radius + (e - r * c1);
-        s.s1[e] = (y >= 0 && y < H && x >= 0 && x < W) ? bf16_to_f32(p1[y * W + x]) : 0.f;
+        s.s1[e] = (y >= 0 && y < H && x >= 0 && x < W) ? to_f32(p1[y * W + x]) : 0.f;
     }
 #pragma unroll 4
     for (int e = threadIdx.x; e < r2 * c2; e += blockDim.x) {
         const int r = e / c2;
         const int y = min(max(t.y0 - radius - search + r, 0), H - 1);
         const int x = min(max(t.x0 - radius - search + (e - r * c2), 0), W - 1);
-        s.s2[e] = bf16_to_f32(p2[y * W + x]);
+        s.s2[e] = to_f32(p2[y * W + x]);
     }
 }
 
@@ -170,10 +178,11 @@ __device__ __forceinline__ void row_sums(const float* __restrict__ a_row,
 }
 
 // The (search, radius) = (SEARCH, RADIUS) kernel: one warp per dy, the
-// vertical window as a register ring of row sums.
-template <int SEARCH, int RADIUS>
+// vertical window as a register ring of row sums. T is the input element:
+// uint16_t (bf16 words) or float.
+template <int SEARCH, int RADIUS, typename T>
 __global__ void __launch_bounds__((2 * SEARCH + 1) * 32, 1)
-flow_level_kernel(const uint16_t* __restrict__ i1, const uint16_t* __restrict__ i2,
+flow_level_kernel(const T* __restrict__ i1, const T* __restrict__ i2,
                  float* __restrict__ out, int H, int W, int tile_h, float tl) {
     constexpr int S = 2 * SEARCH + 1, K = 2 * RADIUS + 1;
     constexpr int C1 = TILE_W + 2 * RADIUS, C2 = C1 + 2 * SEARCH;
@@ -245,8 +254,9 @@ flow_level_kernel(const uint16_t* __restrict__ i1, const uint16_t* __restrict__ 
 // Any search and radius: warp w takes dy = w - search, w + nw - search, ...;
 // each window is summed directly from shared memory over its in-image taps,
 // and the soft-argmin is updated online with one exponential per shift.
+template <typename T>
 __global__ void __launch_bounds__(1024)
-flow_level_kernel_any(const uint16_t* __restrict__ i1, const uint16_t* __restrict__ i2,
+flow_level_kernel_any(const T* __restrict__ i1, const T* __restrict__ i2,
                float* __restrict__ out, int H, int W, int tile_h, int search, int radius,
                float tl) {
     const int S = 2 * search + 1, K = 2 * radius + 1;
@@ -294,13 +304,38 @@ flow_level_kernel_any(const uint16_t* __restrict__ i1, const uint16_t* __restric
     merge(s.part, nw, out, t, H, W, tl);
 }
 
+// One launch at the element type T: the ring kernel where its window sizes
+// are compiled in ((5, 3): the fast presets; (3, 3): the accurate pyramid),
+// else the run-time kernel.
+template <typename T>
+int launch(const T* a, const T* b, float* f, int H, int W, int tile_h, int search, int radius,
+           float tl, dim3 grid, int threads, size_t smem, cudaStream_t st) {
+    const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    cudaError_t err;
+    if (search == 5 && radius == 3) {
+        err = cudaFuncSetAttribute(flow_level_kernel<5, 3, T>, attr, static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        flow_level_kernel<5, 3, T><<<grid, threads, smem, st>>>(a, b, f, H, W, tile_h, tl);
+    } else if (search == 3 && radius == 3) {
+        err = cudaFuncSetAttribute(flow_level_kernel<3, 3, T>, attr, static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        flow_level_kernel<3, 3, T><<<grid, threads, smem, st>>>(a, b, f, H, W, tile_h, tl);
+    } else {
+        err = cudaFuncSetAttribute(flow_level_kernel_any<T>, attr, static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        flow_level_kernel_any<T><<<grid, threads, smem, st>>>(a, b, f, H, W, tile_h, search,
+                                                             radius, tl);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// i1, i2: (P, H, W) bf16 (raw 16-bit words); out: (P, H, W, 2) f32. The grid
-// is (column tiles x row tiles of tile_h rows, P), 2*search+1 warps a block
-// (at most 32); the wrapper picks tile_h and checks that the block's shared
-// memory fits, that P <= 65535 and that H * W < 2^31.
-extern "C" int vdet_flow_level(const void* i1, const void* i2, void* out,
+// i1, i2: (P, H, W) bf16 (raw 16-bit words; f32 = 0) or f32 (f32 = 1); out:
+// (P, H, W, 2) f32. The grid is (column tiles x row tiles of tile_h rows, P),
+// 2*search+1 warps a block (at most 32); the wrapper picks tile_h and checks
+// that the block's shared memory fits, that P <= 65535 and that H * W < 2^31.
+extern "C" int vdet_flow_level(const void* i1, const void* i2, void* out, int f32,
                                int P, int H, int W, int tile_h, int search,
                                int radius, float temperature, void* stream) {
     const int S = 2 * search + 1, K = 2 * radius + 1;
@@ -313,20 +348,11 @@ extern "C" int vdet_flow_level(const void* i1, const void* i2, void* out,
                                         / static_cast<double>(K * K));
     const dim3 grid(((W + TILE_W - 1) / TILE_W) * ((H + tile_h - 1) / tile_h), P);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto* a = static_cast<const uint16_t*>(i1);
-    const auto* b = static_cast<const uint16_t*>(i2);
     auto* f = static_cast<float*>(out);
-    const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    cudaError_t err;
-    if (search == 5 && radius == 3) {
-        err = cudaFuncSetAttribute(flow_level_kernel<5, 3>, attr, static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        flow_level_kernel<5, 3><<<grid, nw * 32, smem, st>>>(a, b, f, H, W, tile_h, tl);
-    } else {
-        err = cudaFuncSetAttribute(flow_level_kernel_any, attr, static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        flow_level_kernel_any<<<grid, nw * 32, smem, st>>>(a, b, f, H, W, tile_h, search,
-                                                          radius, tl);
+    if (f32) {
+        return launch(static_cast<const float*>(i1), static_cast<const float*>(i2), f, H, W,
+                      tile_h, search, radius, tl, grid, nw * 32, smem, st);
     }
-    return static_cast<int>(cudaGetLastError());
+    return launch(static_cast<const uint16_t*>(i1), static_cast<const uint16_t*>(i2), f, H, W,
+                  tile_h, search, radius, tl, grid, nw * 32, smem, st);
 }

@@ -45,8 +45,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 KERNELS = {
-    # flow_level(i1, i2, out, P, H, W, tile_h, search, radius, temperature, stream)
-    "flow_level": (("vdet_flow_level", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)), ()),
+    # flow_level(i1, i2, out, f32, P, H, W, tile_h, search, radius, temperature,
+    # stream); f32 = 1: float32 inputs, 0: bf16
+    "flow_level": (("vdet_flow_level", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)), ()),
     # nms_grouped(boxes, scores, valid, groups, keep, B, N, threads, thresh,
     # offset, stream). No FMA contraction: keep sets are threshold decisions
     # on an IoU whose op order must round exactly like the reference's.

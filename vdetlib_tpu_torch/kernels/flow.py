@@ -3,10 +3,13 @@
 MGP consumes only the MEAN flow inside each detection box, so the
 acceptance criterion is box-shift tolerance, not flow-field equality. The
 ``fast``/``fastest`` presets run one reduced-resolution block-matching level
-(half / quarter resolution) through :func:`.flow_level.flow_level` — the CUDA
-kernel A on a card. The ``accurate`` pyramid is not ported yet (ROADMAP.md,
-Queue 1). The JAX package's ``VDETLIB_TPU_FLOW_UNROLL`` is a TPU compile knob
-and has no counterpart here.
+(half / quarter resolution, bf16) through :func:`.flow_level.flow_level` —
+the CUDA kernel A on a card. The ``accurate`` preset is the coarse-to-fine
+pyramid :func:`flow_pair` on float32 gray frames at full resolution: each of
+its levels is one call of the same wrapper (kernel A's float32 path on a
+card) for all pairs at once, with the bilinear upsampling and warping in
+tensor ops between them. The JAX package's ``VDETLIB_TPU_FLOW_UNROLL`` is a
+TPU compile knob and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -17,8 +20,8 @@ import torch.nn.functional as F
 from vdetlib_tpu_torch.kernels.flow_level import _box_mean, _flow_level, flow_level
 
 __all__ = [
-    "FLOW_PRESET_POOL", "_avg_pool2", "_box_mean", "_flow_level", "flow_coord_scale",
-    "flow_video", "mean_flow_in_boxes", "to_gray",
+    "FLOW_PRESET_POOL", "_avg_pool2", "_box_mean", "_flow_level", "_warp_bilinear",
+    "flow_coord_scale", "flow_pair", "flow_video", "mean_flow_in_boxes", "to_gray",
 ]
 
 # native pyramid pooling per preset: 1 = full res, 2 = half, 4 = quarter
@@ -44,26 +47,90 @@ def _avg_pool2(x):
     return x.mean(dim=(-3, -1))
 
 
+def _warp_bilinear(img, flow):
+    """Warp (..., H, W) by (..., H, W, 2) flow: sample ``img`` at (x, y) +
+    flow, clamped to the image, bilinearly from the pixels at the floor and
+    floor + 1 (clamped), in the JAX function's order of operations."""
+    H, W = img.shape[-2:]
+    dev = img.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + flow[..., 1]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :] + flow[..., 0]
+    ys = torch.clamp(ys, 0.0, H - 1.0)
+    xs = torch.clamp(xs, 0.0, W - 1.0)
+    y0 = torch.floor(ys).long()
+    x0 = torch.floor(xs).long()
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    wy = ys - y0
+    wx = xs - x0
+    flat = img.reshape(img.shape[:-2] + (H * W,))
+
+    def gather(yy, xx):
+        idx = (yy * W + xx).reshape(yy.shape[:-2] + (H * W,))
+        return torch.gather(flat, -1, idx).reshape(yy.shape)
+
+    v00 = gather(y0, x0)
+    v01 = gather(y0, x1)
+    v10 = gather(y1, x0)
+    v11 = gather(y1, x1)
+    return v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx + v10 * wy * (1 - wx) + v11 * wy * wx
+
+
+def flow_pair(g1, g2, levels: int = 3, search: int = 3, radius: int = 3,
+              temperature: float = 0.08):
+    """Coarse-to-fine flow between (P, H, W) float32 gray pairs → (P, H, W, 2).
+
+    The JAX ``flow_pair`` for all P pairs at once: ``levels`` levels of 2×2
+    mean pools; the coarsest level is one block-matching level; each finer
+    level takes the coarser flow ×2, resized bilinearly to its shape, warps
+    ``g2``'s level by it and adds the block-matching flow of the residual.
+    Each level is one :func:`.flow_level.flow_level` call (kernel A on a
+    card), so a call launches ``levels`` kernels."""
+    pyr1, pyr2 = [g1], [g2]
+    for _ in range(levels - 1):
+        pyr1.append(_avg_pool2(pyr1[-1]))
+        pyr2.append(_avg_pool2(pyr2[-1]))
+    flow = None
+    for lvl in reversed(range(levels)):
+        i1, i2 = pyr1[lvl].contiguous(), pyr2[lvl].contiguous()
+        if flow is None:
+            flow = flow_level(i1, i2, search=search, radius=radius, temperature=temperature)
+        else:
+            up = F.interpolate((flow * 2.0).permute(0, 3, 1, 2), size=i1.shape[-2:],
+                               mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+            i2w = _warp_bilinear(i2, up).contiguous()
+            res = flow_level(i1, i2w, search=search, radius=radius, temperature=temperature)
+            flow = up + res
+    return flow
+
+
 def flow_video(frames_u8, levels: int = 3, search: int = 3, radius: int = 3,
                temperature: float = 0.08, preset: str = "accurate", upsample: bool = True):
     """Flow for all consecutive pairs of (T, H, W, 3) frames → (T-1, h, w, 2).
 
-    Same signature as the JAX ``flow_video``. The reduced-resolution presets
+    Same signature as the JAX ``flow_video``. ``accurate`` runs the pyramid
+    (:func:`flow_pair`) on float32 gray frames, honouring ``levels``,
+    ``search`` and ``radius``, and returns full resolution whatever
+    ``upsample`` says, as in the JAX package. The reduced-resolution presets
     search ±5 cells at their own resolution (``levels``/``search`` belong to
     the pyramid and are ignored, as in the JAX package).
 
     flow[t] maps frame t → t+1. Values are in FULL-resolution pixels; with
-    ``upsample=False`` the grid stays at the preset's resolution (consumers
-    scale box coordinates by :func:`flow_coord_scale`), with ``upsample=True``
-    it is resized bilinearly to (H, W). A video of fewer than two frames
-    has no pair: the field is empty, ``(0, h, w, 2)`` float32 on the frames'
-    device, as in the JAX package, and no level runs.
+    ``upsample=False`` a reduced preset's grid stays at its resolution
+    (consumers scale box coordinates by :func:`flow_coord_scale`), with
+    ``upsample=True`` it is resized bilinearly to (H, W). A video of fewer
+    than two frames has no pair: the field is empty, ``(0, h, w, 2)``
+    float32 on the frames' device, as in the JAX package, and no level runs.
     """
-    if preset not in ("fast", "fastest"):
-        raise NotImplementedError(
-            f"flow preset {preset!r}: the pyramid ('accurate') is not ported yet "
-            "(ROADMAP.md, Queue 1)"
-        )
+    if preset not in FLOW_PRESET_POOL:
+        raise ValueError(f"flow preset {preset!r}: one of {tuple(FLOW_PRESET_POOL)}")
+    if preset == "accurate":
+        gray = to_gray(frames_u8)
+        if gray.shape[0] < 2:
+            return torch.zeros((0, *gray.shape[1:], 2), dtype=torch.float32,
+                               device=frames_u8.device)
+        return flow_pair(gray[:-1], gray[1:], levels=levels, search=search, radius=radius,
+                         temperature=temperature)
     pool = FLOW_PRESET_POOL[preset]
     gray = _avg_pool2(to_gray(frames_u8))
     if pool == 4:

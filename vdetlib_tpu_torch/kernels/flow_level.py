@@ -9,9 +9,10 @@ shifts gives the sub-pixel flow (dx, dy) of each pixel.
 
 :func:`flow_level` is the wrapper: a CPU tensor goes through the plain
 version :func:`_flow_level`, a CUDA tensor through ``csrc/flow_level.cu``.
-Both take bf16 inputs and compute in float32 throughout; the JAX XLA path
-squares and box-sums in bf16, so the two agree to the MGP box-shift
-tolerance (mean-flow-in-box, the only consumer), not bitwise.
+Both take bf16 inputs (the fast presets' reduced level) or float32 ones (the
+accurate pyramid's levels) and compute in float32 throughout; the JAX XLA
+path squares and box-sums the bf16 level in bf16, so the two agree to the
+MGP box-shift tolerance (mean-flow-in-box, the only consumer), not bitwise.
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ def tile_rows(P: int, H: int, W: int, search: int, radius: int, sms: int) -> int
 
 
 def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.08):
-    """Batched flow level: (P, H, W) bf16 pairs → (P, H, W, 2) float32 flow.
+    """Batched flow level: (P, H, W) bf16 or float32 pairs → (P, H, W, 2) float32 flow.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``flow_level.launches`` counts the launches) or raise. The kernel takes
@@ -125,8 +126,9 @@ def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.
         return _flow_level(i1, i2, search, radius, temperature)
     if i1.device.type != "cuda" or i2.device != i1.device:
         raise ValueError(f"flow_level: tensors on {i1.device} and {i2.device}")
-    if i1.dtype != torch.bfloat16 or i2.dtype != torch.bfloat16:
-        raise TypeError(f"flow_level kernel takes bf16, got {i1.dtype}, {i2.dtype}")
+    if i1.dtype not in (torch.bfloat16, torch.float32) or i2.dtype != i1.dtype:
+        raise TypeError(f"flow_level kernel takes two bf16 or two float32 arrays, got "
+                        f"{i1.dtype}, {i2.dtype}")
     if i1.dim() != 3 or i1.shape != i2.shape:
         raise ValueError(f"flow_level takes two (P, H, W) arrays, got {i1.shape}, {i2.shape}")
     if not (i1.is_contiguous() and i2.is_contiguous()):
@@ -141,8 +143,9 @@ def flow_level(i1, i2, search: int = 5, radius: int = 3, temperature: float = 0.
     out = torch.empty((P, H, W, 2), dtype=torch.float32, device=i1.device)
     fn = build.load("flow_level")
     rc = fn(
-        i1.data_ptr(), i2.data_ptr(), out.data_ptr(), P, H, W, tile_h, search, radius,
-        float(temperature), torch.cuda.current_stream(i1.device).cuda_stream,
+        i1.data_ptr(), i2.data_ptr(), out.data_ptr(), int(i1.dtype == torch.float32), P, H, W,
+        tile_h, search, radius, float(temperature),
+        torch.cuda.current_stream(i1.device).cuda_stream,
     )
     build.check_launch("flow_level", rc)
     flow_level.launches += 1

@@ -10,7 +10,10 @@ starts at its anchor frame (anchor box, conf 1), tracks while its peak stays
 above ``conf_thresh`` and keeps its last box once it dies.
 
 :func:`track_scan_plain` is the plain version (a Python loop of T steps of
-tensor ops over all 2A lanes); :func:`track_scan_kernel` is the wrapper: CPU
+tensor ops over all 2A lanes), and also the scan of every option outside the
+kernel's contract (several scales, EMA templates, detection snapping: the
+JAX package runs those through its XLA scan on every backend);
+:func:`track_scan_kernel` is the wrapper: CPU
 tensors go through the plain version, CUDA tensors through
 ``csrc/track_scan.cu`` (one launch for the whole scan, each lane on a
 cluster of :func:`cluster_ctas` blocks, keeping :func:`launch_parts`
@@ -21,13 +24,16 @@ partial responses). Both return
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from vdetlib_tpu_torch.geometry.boxes import pairwise_iou
 from vdetlib_tpu_torch.kernels import build
 from vdetlib_tpu_torch.nn.heads import roi_align
 from vdetlib_tpu_torch.nn.tracker_net import (
     TrackerConfig,
     correlate,
+    extract_template,
     search_window,
     soft_argmax_2d,
 )
@@ -92,13 +98,66 @@ def ncc_update(feat_t, box, template, cfg: TrackerConfig):
     return new_box, peak
 
 
+def snap_to_dets(box, det_boxes, det_scores, det_valid, snap_iou: float, snap_weight: float):
+    """Blend each tracked box toward its best same-frame detection.
+
+    Counterpart of the JAX ``video/track.py::snap_to_dets`` (one lane there,
+    any leading lane axes here, broadcast against the det arrays').
+    Selection among valid dets with IoU(box, det) > ``snap_iou``: the highest
+    score; ties by the higher IoU, then by the larger x1, y1, x2, y2 in turn,
+    so the target is always one real detection. Every reduction is a masked
+    maximum, so the result does not depend on the order of the det slots.
+
+    Args:
+      box: (..., 4); det_boxes: (..., N, 4); det_scores, det_valid: (..., N).
+    Returns:
+      (snapped (..., 4), any candidate (...) bool).
+    """
+    iou = pairwise_iou(box[..., None, :], det_boxes)[..., 0, :]  # (..., N)
+    cand = det_valid & (iou > snap_iou)
+    neg = torch.tensor(float("-inf"), device=box.device)
+    s_max = torch.where(cand, det_scores, neg).amax(-1, keepdim=True)
+    any_c = s_max[..., 0] > neg
+    c3 = cand & (det_scores == s_max)
+    i_max = torch.where(c3, iou, neg).amax(-1, keepdim=True)
+    c3 = c3 & (iou == i_max)
+    # successive coordinate maxima narrow c3 to dets equal in every
+    # coordinate, so the final masked maximum is one of them
+    for d in range(4):
+        d_max = torch.where(c3, det_boxes[..., d], neg).amax(-1, keepdim=True)
+        c3 = c3 & (det_boxes[..., d] == d_max)
+    target = torch.where(c3[..., None], det_boxes, neg).amax(-2)  # (..., 4)
+    w = np.float32(snap_weight)  # float32 weights, as the JAX scan's traced scalar
+    blended = float(np.float32(1.0) - w) * box + float(w) * target
+    return torch.where(any_c[..., None], blended, box), any_c
+
+
+def ema_templates(tpl, fresh, upd, cfg: TrackerConfig):
+    """The EMA template update: where ``upd``, ``(1-eta) tpl + eta fresh``
+    renormalized (+1e-6 under the root, in float32 as the JAX scans)."""
+    eta = np.float32(cfg.template_eta)
+    blend = float(np.float32(1.0) - eta) * tpl + float(eta) * fresh
+    blend = blend / torch.sqrt(torch.sum(blend * blend, dim=(-3, -2, -1), keepdim=True) + 1e-6)
+    return torch.where(upd[..., None, None, None], blend, tpl)
+
+
 def track_scan_plain(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerConfig,
-                     conf_thresh: float):
+                     conf_thresh: float, snap=None, snap_iou: float = 0.5,
+                     snap_weight: float = 0.5):
     """The folded scan as a fixed-trip loop of T steps over 2A lanes.
+
+    Every option of the JAX XLA scan (``video/track.py::track_batch``):
+    ``cfg.num_scales`` > 1; EMA templates (``cfg.template_eta`` > 0: a lane
+    that starts takes its anchor template, and after a confident step with
+    peak > ``template_update_conf`` its template moves toward the one at its
+    new box); detection snapping (``snap``: after the confident update a
+    lane's box blends toward the best same-frame detection, then the EMA
+    reads the snapped box).
 
     Args:
       feats: (T, h, w, C) tracker features; anchor_ts: (A,) int frame of each
-        anchor; anchor_boxes: (A, 4); templates: (A, P, P, C) normalized.
+        anchor; anchor_boxes: (A, 4); templates: (A, P, P, C) normalized;
+      snap: None, or (det_boxes (T, N, 4), det_scores (T, N), valid (T, N)).
     Returns:
       (fb, fc, fa, bb, bc, ba), each indexed by frame: (T, A, 4) boxes,
       (T, A) conf, (T, A) alive of the forward and the backward lanes.
@@ -106,9 +165,15 @@ def track_scan_plain(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerConf
     T = feats.shape[0]
     dev = feats.device
     A = anchor_ts.shape[0]
-    tpl2 = templates[None].expand((2,) + templates.shape)
+    adapt = cfg.template_eta > 0.0
+    tpl_anchor = templates[None].expand((2,) + templates.shape)
+    if adapt:  # contiguous, so that torch.where keeps the frozen path's layout
+        tpl_anchor = tpl_anchor.contiguous()
+    tpl2 = tpl_anchor
     ar = torch.arange(T, device=dev)
     ts_all = torch.stack([ar, ar.flip(0)], dim=1)  # step i → frames (i, T-1-i)
+    if snap is not None:  # each det array as (T, 2, ...): step i's two frames
+        snap = tuple(torch.stack([a, a.flip(0)], dim=1) for a in snap)
     box_st = torch.zeros((2, A, 4), dtype=torch.float32, device=dev)
     alive_st = torch.zeros((2, A), dtype=torch.bool, device=dev)
     out_b, out_c, out_a = [], [], []
@@ -117,15 +182,24 @@ def track_scan_plain(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerConf
         started = ts2[:, None] == anchor_ts[None, :]  # (2, A)
         box = torch.where(started[..., None], anchor_boxes[None], box_st)
         alive2 = alive_st | started
+        if adapt:  # a lane that (re)starts tracks from its anchor template
+            tpl2 = torch.where(started[..., None, None, None], tpl_anchor, tpl2)
         feat2 = torch.stack([feats[i], feats[T - 1 - i]])
         new_box, peak = ncc_update(feat2, box, tpl2, cfg)
         track_now = alive2 & (ts2[:, None] != anchor_ts[None, :])
         ok = peak > conf_thresh
         new_alive = torch.where(track_now, alive2 & ok, alive2)
         new_box = torch.where((track_now & ok)[..., None], new_box, box)
+        if snap is not None:
+            db, dsc, dv = (a[i][:, None] for a in snap)  # (2, 1, N, ...)
+            snapped, _ = snap_to_dets(new_box, db, dsc, dv, snap_iou, snap_weight)
+            new_box = torch.where((track_now & ok)[..., None], snapped, new_box)
         out_b.append(new_box)
         out_c.append(torch.where(started, torch.ones_like(peak), peak))
         out_a.append(started | new_alive)
+        if adapt:
+            upd = track_now & ok & (peak > cfg.template_update_conf)
+            tpl2 = ema_templates(tpl2, extract_template(feat2, new_box, cfg), upd, cfg)
         box_st, alive_st = new_box, new_alive
     # step axis: forward outputs are at frame i, backward outputs at T-1-i
     ob, oc, oa = torch.stack(out_b, 1), torch.stack(out_c, 1), torch.stack(out_a, 1)  # (2, T, A, ...)
@@ -133,8 +207,10 @@ def track_scan_plain(feats, anchor_ts, anchor_boxes, templates, cfg: TrackerConf
 
 
 def kernel_takes(cfg: TrackerConfig) -> bool:
-    """Whether ``cfg`` is kernel F's contract, the JAX package's gate for its
-    Pallas scan: one scale and frozen templates (any pools)."""
+    """Whether ``cfg`` is kernel F's contract: one scale and frozen templates
+    (any pools). The JAX package's gate for its Pallas scan checks the
+    scales and snapping but not ``template_eta``, so there EMA templates are
+    ignored when that scan is switched on; this gate excludes them."""
     return int(cfg.num_scales) <= 1 and cfg.template_eta == 0.0
 
 

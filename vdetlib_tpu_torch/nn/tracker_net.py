@@ -32,7 +32,7 @@ class TrackerConfig:
     scale_step: float = 1.05
     scale_damping: float = 0.5
     scale_penalty: float = 0.975  # multiplier on non-unity scale peaks
-    # EMA template adaptation (0.0 = frozen anchor template); not ported yet
+    # EMA template adaptation (0.0 = frozen anchor template)
     template_eta: float = 0.0
     template_update_conf: float = 0.6
 
@@ -77,12 +77,13 @@ class TrackerNet(nn.Module):
 def extract_template(feat, box, cfg: TrackerConfig):
     """Anchor-box template features, L2-normalized.
 
-    feat (..., h, w, C) with box (..., 4) → (..., P, P, C) float32 (the
-    leading axes pair each box with its own feature map)."""
+    feat (..., h, w, C) with box (..., 4) → (..., P, P, C) float32: the
+    leading axes pair each box with its own feature map; or with box
+    (..., L, 4) → (..., L, P, P, C): L boxes on each map."""
     lead = box.shape[:-1]
     f = feat.reshape((-1,) + feat.shape[-3:])
-    b = box.reshape(-1, 1, 4)
-    pooled = roi_align(f, b, stride=cfg.stride, pool=cfg.template_pool)[:, 0].float()
+    b = box.reshape(f.shape[0], -1, 4)
+    pooled = roi_align(f, b, stride=cfg.stride, pool=cfg.template_pool).float()
     norm = torch.sqrt(torch.sum(pooled * pooled, dim=(-3, -2, -1), keepdim=True) + 1e-6)
     return (pooled / norm).reshape(lead + pooled.shape[-3:])
 

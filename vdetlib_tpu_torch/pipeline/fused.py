@@ -57,7 +57,7 @@ class FusedConfig:
     anchor_thresh: float = 0.3
     track_conf: float = 0.5
     cover_thresh: float = 0.5
-    snap_weight: float = 0.0  # detection snapping: not ported yet (must stay 0)
+    snap_weight: float = 0.0  # detection snapping blend (0 = off)
     snap_iou: float = 0.5
     track_stride: int = 2
     # rescore
@@ -72,7 +72,8 @@ class FusedConfig:
     suppress_thresh: float = 0.3
     max_paths: int = 100
     link_rescore: str = "avg"
-    # tubelet boxes as detections: not ported yet (must stay False)
+    # tubelet boxes as detections: live unmatched track boxes in interior
+    # gaps enter the det set before linking
     tubelet_boxes: bool = False
     # flow
     flow_preset: str = "fastest"
@@ -136,6 +137,10 @@ def _greedy_track_rounds(trk_cfg, cfg: FusedConfig, feats, cand_boxes, cand_scor
     A = cfg.anchors_per_round
     K = cfg.max_tracks
     dev = cand_scores.device
+    # detection snapping uses the anchor-candidate set, the set the staged
+    # track_from_det builds; snap_to_dets does not depend on slot order, so
+    # the engines' different packings of it snap alike
+    snap = (cand_boxes, cand_scores, cand_mask) if cfg.snap_weight > 0.0 else None
     b_flat = cand_boxes.reshape(F, 4)
     s_flat = cand_scores.reshape(F)
     m_flat = cand_mask.reshape(F)
@@ -167,9 +172,9 @@ def _greedy_track_rounds(trk_cfg, cfg: FusedConfig, feats, cand_boxes, cand_scor
         picks = torch.stack(picks)
         valids = torch.stack(valids)
         tb, tc, ta = track_batch(
-            trk_cfg, feats, t_flat[picks], b_flat[picks], cfg.track_conf,
-            frame_stride=stride, feats_strided=stride > 1,
-            full_t=T if stride > 1 else None, valid_t=valid_t,
+            trk_cfg, feats, t_flat[picks], b_flat[picks], cfg.track_conf, snap=snap,
+            snap_iou=cfg.snap_iou, snap_weight=cfg.snap_weight, frame_stride=stride,
+            feats_strided=stride > 1, full_t=T if stride > 1 else None, valid_t=valid_t,
         )
         ta = ta & valids[:, None] & frame_ok[None, :]
         # K-slot scatter in pick order (invalid lanes land in the dummy row)
@@ -191,12 +196,6 @@ class FusedPipeline:
     """The fused pipeline over one snippet; see :func:`make_fused_pipeline`."""
 
     def __init__(self, det_model, trk_model, trk_cfg, cfg: FusedConfig):
-        if cfg.snap_weight > 0.0 or cfg.tubelet_boxes:
-            raise NotImplementedError(
-                "snapping and tubelet boxes are not ported yet (ROADMAP.md, Queue 1)"
-            )
-        if trk_cfg.template_eta > 0.0:  # track_batch's refusal, before any work
-            raise NotImplementedError("EMA templates are not ported yet (ROADMAP.md, Queue 1)")
         self.det_model = det_model
         self.trk_model = trk_model
         self.trk_cfg = trk_cfg
@@ -317,11 +316,28 @@ class FusedPipeline:
 
         # ---- tubelet rescoring
         with record_function("fused.rescore"):
-            new_scores, stats, _ = rescore_arrays(
+            new_scores, stats, matched_any = rescore_arrays(
                 oboxes, oscores_vec, omask, tb, ta, cfg.rescore_match, cfg.bg_decay,
                 top_ratio=cfg.top_ratio, boost=cfg.boost,
                 min_matched_frac=cfg.min_matched_frac, stat_floor=float(cfg.stat_floor),
             )
+            if cfg.tubelet_boxes:
+                # live unmatched track boxes in INTERIOR gaps (matched frames
+                # on both sides) become det slots scored by the tubelet
+                # statistic; the union is rank-compacted to the output budget
+                # in the staged link stage's order: dets first, then tracks
+                # by index
+                has_before = torch.cumsum(matched_any.int(), 1) > 0
+                has_after = torch.cumsum(matched_any.int().flip(1), 1).flip(1) > 0
+                inj_valid = (ta & ~matched_any & has_before & has_after
+                             & (stats[:, 1:].amax(1) > 0)[:, None])  # (K, T)
+                inj_scores = stats[:, None, :] * inj_valid[..., None]  # (K, T, C)
+                u_boxes = torch.cat([oboxes, tb.transpose(0, 1)], dim=1)
+                u_scores = torch.cat([new_scores, inj_scores.transpose(0, 1)], dim=1)
+                u_mask = torch.cat([omask, inj_valid.transpose(0, 1)], dim=1)
+                kept3, idx3 = _rank_mask(u_mask, cfg.out_budget)
+                oboxes, new_scores, omask = _compact_by_rank(
+                    idx3, cfg.out_budget, u_boxes, u_scores, kept3)
 
         # ---- seq-NMS linking
         cls_scores = new_scores[:, :, 1:].permute(2, 0, 1)  # (C-1, T, Nb)

@@ -83,25 +83,6 @@ def dump_config(workdir: str, cfg: PipelineConfig) -> str:
     return path
 
 
-def _refuse_unported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for an option of ``cfg`` that a stage of
-    the port cannot run yet, before any stage writes its proto (the stage
-    itself would raise only after the earlier stages' files exist)."""
-    if "track" in cfg.stages:
-        if cfg.track.snap_weight > 0.0:
-            raise NotImplementedError(
-                "detection snapping (track.snap_weight > 0) is not ported yet "
-                "(ROADMAP.md Queue 1: detection snapping)")
-        if cfg.tracker_cfg.template_eta > 0.0:
-            raise NotImplementedError(
-                "EMA templates (tracker_cfg.template_eta > 0) are not ported yet "
-                "(ROADMAP.md Queue 1: EMA templates)")
-    if "mgp" in cfg.stages and cfg.mgp.flow_preset == "accurate":
-        raise NotImplementedError(
-            "the 'accurate' flow pyramid (mgp.flow_preset) is not ported yet "
-            "(ROADMAP.md Queue 1: the flow pyramid)")
-
-
 def load_frames_device(vid_proto: dict, image_hw) -> np.ndarray:
     """Decode a video's frames at ``image_hw`` once: (T, H, W, 3) uint8.
 
@@ -144,7 +125,6 @@ def run_video(workdir: str, vid_proto: dict, box_proto: Optional[dict], models: 
     if frames is not None and cfg.detect.device_resize:
         raise ValueError("in-memory frames are at detect.image_hw; detect.device_resize reads "
                          "native frames: pass one or the other")
-    _refuse_unported(cfg)
     vdir = os.path.join(workdir, vid_proto["video"])
     os.makedirs(vdir, exist_ok=True)
     paths = {s: os.path.join(vdir, f"{s}.json") for s in STAGE_FILES}
@@ -255,7 +235,6 @@ def run_videos(workdir: str, video_inputs, models: Models, cfg: PipelineConfig,
 
     Metrics (``StageMetrics("pipeline")``): ``frames``, ``videos`` and
     ``workers``."""
-    _refuse_unported(cfg)
     metrics = StageMetrics("pipeline")
     dump_config(workdir, cfg)
     entries = [(v, b, fr[0] if fr else None) for v, b, *fr in video_inputs]

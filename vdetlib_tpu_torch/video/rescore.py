@@ -47,8 +47,8 @@ class RescoreOptions:
     num_classes: int = 31
     max_tracks: int = 64
     # tubelet boxes as detections: live track boxes with no matched detection
-    # between matched frames enter the det set (tubelet_rescore; the fused
-    # pipeline refuses it, ROADMAP.md Queue 1)
+    # between matched frames enter the det set (tubelet_rescore here, the
+    # same rule on the card in the fused pipeline)
     tubelet_boxes: bool = False
 
 

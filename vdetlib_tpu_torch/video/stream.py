@@ -28,8 +28,9 @@ reference the fused engine is held to. Both call the same stage functions
 and share the host bookkeeping of track ids and segments. After the last
 chunk, seq-NMS linking runs once over the collected boxes and scores.
 
-EMA templates (``template_eta`` > 0) are not ported yet (ROADMAP.md,
-Queue 1) and raise ``NotImplementedError``.
+With EMA templates (``TrackerConfig.template_eta`` > 0) the slot templates
+adapt inside :func:`track_chunk` and the adapted ones are carried to the
+next chunk, in both engines.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from vdetlib_tpu_torch.geometry.boxes import pairwise_iou, shift_boxes
 from vdetlib_tpu_torch.kernels.flow import flow_coord_scale, flow_video, mean_flow_in_boxes
 from vdetlib_tpu_torch.kernels.nms import batched_nms
 from vdetlib_tpu_torch.kernels.seq_nms import seq_nms_batch
+from vdetlib_tpu_torch.kernels.track_scan import ema_templates
 from vdetlib_tpu_torch.nn.tracker_net import extract_template
 from vdetlib_tpu_torch.utils.common import iou as np_iou
 from vdetlib_tpu_torch.utils.log import StageMetrics
@@ -113,11 +115,6 @@ def init_carry(opts: StreamOptions, trk_cfg, device) -> StreamCarry:
     )
 
 
-def _check_ported(opts: StreamOptions, trk_cfg) -> None:
-    if trk_cfg.template_eta > 0.0:
-        raise NotImplementedError("EMA templates are not ported yet (ROADMAP.md, Queue 1)")
-
-
 def _stride(opts: StreamOptions) -> int:
     """The track stride, checked as the JAX engines check it."""
     s = int(opts.track_stride)
@@ -140,17 +137,21 @@ def _extract_templates_core(feats, seed_ti, seed_boxes, cfg):
 
 
 def track_chunk(cfg, feats, templates, boxes0, alive0, conf_thresh: float):
-    """Advance all track slots over one chunk of features (frozen templates).
+    """Advance all track slots over one chunk of features.
 
     Args:
       feats: (Tc, h, w, C); templates: (A, P, P, C); boxes0: (A, 4);
       alive0: (A,) bool — state carried from the previous chunk.
     Returns:
       boxes (A, Tc, 4), conf (A, Tc), alive (A, Tc), and the carry
-      (boxes_end (A, 4), alive_end (A,), templates_end = templates).
+      (boxes_end (A, 4), alive_end (A,), templates_end). ``templates_end``
+      is ``templates`` unless ``cfg.template_eta`` > 0: then a slot alive
+      after a step whose peak exceeds ``template_update_conf`` moves its
+      template toward the one at its new box (the batch tracker's EMA rule,
+      ``kernels/track_scan.py::ema_templates``). Both engines call this
+      function, which keeps them equal bit for bit.
     """
-    if cfg.template_eta > 0.0:
-        raise NotImplementedError("EMA templates are not ported yet (ROADMAP.md, Queue 1)")
+    adapt = cfg.template_eta > 0.0
     box, alive = boxes0, alive0
     tpl = templates[None]
     out_b, out_c, out_a = [], [], []
@@ -162,8 +163,12 @@ def track_chunk(cfg, feats, templates, boxes0, alive0, conf_thresh: float):
         out_b.append(box)
         out_c.append(peak)
         out_a.append(alive)
+        if adapt:
+            upd = (alive & (peak > cfg.template_update_conf))[None]
+            tpl = ema_templates(tpl, extract_template(feats[t][None], box[None], cfg), upd,
+                                cfg)
     return (torch.stack(out_b, 1), torch.stack(out_c, 1), torch.stack(out_a, 1),
-            box, alive, templates)
+            box, alive, tpl[0] if adapt else templates)
 
 
 def track_chunk_strided(cfg, feats_s, templates, boxes0, alive0, bnd_box, bnd_conf, bnd_alive,
@@ -408,7 +413,6 @@ def make_stream_chunk_fn(det_model, trk_model, trk_cfg, opts: StreamOptions):
     that its two engines compile bit-identically; eager PyTorch fuses
     nothing, so there is nothing to pin here.
     """
-    _check_ported(opts, trk_cfg)
     s = _stride(opts)
     A, R, C = opts.track_slots, opts.max_rois, opts.num_classes
     Tc = opts.chunk
@@ -634,7 +638,6 @@ def stream_video(det_model, trk_model, trk_cfg, frame_chunks: Iterator[np.ndarra
       axis is 3R when opts.mgp else R), seq-NMS scores + path ids, and the
       per-track segments.
     """
-    _check_ported(opts, trk_cfg)
     if opts.engine not in ENGINES:
         raise ValueError(f"stream engine {opts.engine!r}: one of {ENGINES}")
     run = _stream_video_fused if opts.engine == "fused" else _stream_video_host

@@ -6,7 +6,9 @@ scan of T steps: step i advances the forward lanes at frame i and the
 backward lanes at frame T-1-i (the JAX package's folded scan). The scan is
 ``kernels/track_scan.py``: kernel F on the card (one launch), its plain
 version (a fixed-trip loop of tensor ops, no host synchronisation per step)
-on the CPU and for configurations outside the kernel's contract.
+on the CPU and for the options outside the kernel's contract: several
+scales, EMA templates (``TrackerConfig.template_eta``) and detection
+snapping (:func:`snap_to_dets`).
 
 :func:`track_from_det` is the staged tracking stage: greedy anchor rounds
 on the host over a det_proto, each round tracked by :func:`track_batch`.
@@ -23,8 +25,10 @@ from torch.profiler import record_function
 
 from vdetlib_tpu_torch.data.loader import FrameLoader
 from vdetlib_tpu_torch.kernels.track_scan import (
+    ema_templates,
     kernel_takes,
     ncc_update,
+    snap_to_dets,
     track_scan_kernel,
     track_scan_plain,
 )
@@ -34,7 +38,7 @@ from vdetlib_tpu_torch.utils.common import iou as np_iou
 from vdetlib_tpu_torch.utils.log import StageMetrics
 
 __all__ = ["TrackOptions", "_candidate_dets", "_track_one_direction", "ncc_update",
-           "track_batch", "track_from_det", "tracker_features"]
+           "snap_to_dets", "track_batch", "track_from_det", "tracker_features"]
 
 
 @dataclass(frozen=True)
@@ -48,7 +52,9 @@ class TrackOptions:
     cover_thresh: float = 0.5  # det covered if IoU with a track box exceeds this
     batch_size: int = 16  # frames per feature-extraction batch
     image_hw: Optional[tuple] = None  # None = native frame size
-    # detection snapping (0.0 = off): not ported yet, > 0 raises
+    # detection snapping (0.0 = off): after each NCC update, blend the tracked
+    # box toward the best same-frame detection overlapping it (IoU > snap_iou)
+    # among the anchor candidates
     snap_weight: float = 0.0
     snap_iou: float = 0.5
     # advance the NCC scan every s-th frame only, interpolating the skipped
@@ -64,27 +70,28 @@ def tracker_features(model, frames_u8):
 
 
 def _track_one_direction(feats, anchor_t, anchor_box, template, cfg: TrackerConfig,
-                         conf_thresh: float, reverse: bool, snap=None):
+                         conf_thresh: float, reverse: bool, snap=None, snap_iou: float = 0.5,
+                         snap_weight: float = 0.5):
     """Scan the full frame axis for L anchors, one direction.
 
     The JAX function scans one anchor and is vmapped over anchors; here the L
     lanes share each step's frame, so one :func:`ncc_update` serves them all.
+    Detection snapping and EMA templates follow the folded scan's rule
+    (``kernels/track_scan.py::track_scan_plain``).
 
     Args:
       feats: (T, h, w, C) tracker features.
       anchor_t: (L,) int frame index of each anchor; anchor_box: (L, 4) pixel
-        boxes at the anchor frames; template: (L, P, P, C) normalized.
+        boxes at the anchor frames; template: (L, P, P, C) normalized;
+      snap: None, or (det_boxes (T, N, 4), det_scores (T, N), valid (T, N)).
     Returns:
       boxes (L, T, 4), conf (L, T), alive (L, T) — entries before the anchor
       (in scan direction) are dead; the anchor frame is alive with conf 1.
     """
-    if snap is not None:
-        raise NotImplementedError("detection snapping is not ported yet (ROADMAP.md, Queue 1)")
-    if cfg.template_eta > 0.0:
-        raise NotImplementedError("EMA templates are not ported yet (ROADMAP.md, Queue 1)")
     T = feats.shape[0]
     L = anchor_t.shape[0]
     dev = feats.device
+    adapt = cfg.template_eta > 0.0
     box = torch.zeros((L, 4), dtype=torch.float32, device=dev)
     alive = torch.zeros((L,), dtype=torch.bool, device=dev)
     tpl = template[None]
@@ -93,15 +100,25 @@ def _track_one_direction(feats, anchor_t, anchor_box, template, cfg: TrackerConf
         started = anchor_t == t
         box = torch.where(started[:, None], anchor_box, box)
         alive = alive | started
+        if adapt:
+            tpl = torch.where(started[None, :, None, None, None], template[None], tpl)
         new_box, peak = ncc_update(feats[t][None], box[None], tpl, cfg)
         new_box, peak = new_box[0], peak[0]
         track_now = alive & ~started
         ok = peak > conf_thresh
         new_alive = torch.where(track_now, alive & ok, alive)
         new_box = torch.where((track_now & ok)[:, None], new_box, box)
+        if snap is not None:
+            snapped, _ = snap_to_dets(new_box, snap[0][t], snap[1][t], snap[2][t], snap_iou,
+                                      snap_weight)
+            new_box = torch.where((track_now & ok)[:, None], snapped, new_box)
         out_b.append(new_box)
         out_c.append(torch.where(started, torch.ones_like(peak), peak))
         out_a.append(started | new_alive)
+        if adapt:
+            upd = (track_now & ok & (peak > cfg.template_update_conf))[None]
+            tpl = ema_templates(tpl, extract_template(feats[t][None], new_box[None], cfg), upd,
+                                cfg)
         box, alive = new_box, new_alive
     if reverse:
         out_b, out_c, out_a = out_b[::-1], out_c[::-1], out_a[::-1]
@@ -109,7 +126,8 @@ def _track_one_direction(feats, anchor_t, anchor_box, template, cfg: TrackerConf
 
 
 def track_batch(cfg: TrackerConfig, feats, anchor_ts, anchor_boxes, conf_thresh: float,
-                snap=None, frame_stride: int = 1, feats_strided: bool = False,
+                snap=None, snap_iou: float = 0.5, snap_weight: float = 0.5,
+                frame_stride: int = 1, feats_strided: bool = False,
                 full_t: int | None = None, valid_t=None):
     """Track A anchors forward+backward over (T, h, w, C) features.
 
@@ -124,17 +142,19 @@ def track_batch(cfg: TrackerConfig, feats, anchor_ts, anchor_boxes, conf_thresh:
     ``feats`` already holds only every s-th frame (ceil(full_t/s) rows).
     ``valid_t`` (bucket-padded T): the count of REAL frames; the anchor snap
     and the interpolation neighbour clamp to the last real sampled frame.
+    ``snap`` (det_boxes (T, N, 4), det_scores (T, N), valid (T, N)), in
+    FULL-frame indexing at every stride: after each confident update a
+    lane's box blends toward its best same-frame detection
+    (:func:`snap_to_dets`, ``snap_iou``, ``snap_weight``).
 
-    The stride-1 scan is chosen by configuration, never after a failure: a
-    ``cfg`` in kernel F's contract (``kernels.track_scan.kernel_takes``: one
-    scale, frozen templates, the JAX package's gate for its Pallas scan) goes
-    to ``track_scan_kernel`` (kernel F on a CUDA tensor, the plain loop on a
-    CPU one); any other ``cfg`` (``num_scales`` > 1) runs ``track_scan_plain``.
+    The stride-1 scan is chosen from the configuration before anything runs,
+    never after a failure: a ``cfg`` in kernel F's contract
+    (``kernels.track_scan.kernel_takes``: one scale, frozen templates) with
+    no ``snap`` goes to ``track_scan_kernel`` (kernel F on a CUDA tensor,
+    the plain loop on a CPU one); every other configuration (several
+    scales, EMA templates, snapping) runs ``track_scan_plain``, as the JAX
+    package runs it through its XLA scan.
     """
-    if snap is not None:
-        raise NotImplementedError("detection snapping is not ported yet (ROADMAP.md, Queue 1)")
-    if cfg.template_eta > 0.0:
-        raise NotImplementedError("EMA templates are not ported yet (ROADMAP.md, Queue 1)")
     if frame_stride > 1:
         s = int(frame_stride)
         if feats_strided:
@@ -157,8 +177,10 @@ def track_batch(cfg: TrackerConfig, feats, anchor_ts, anchor_boxes, conf_thresh:
             last_sample = torch.clamp(torch.as_tensor(valid_t, device=dev) - 1, min=0) // s
         zero = torch.zeros((), dtype=anchor_ts.dtype, device=dev)
         anchor_ts_s = torch.clamp((anchor_ts + s // 2) // s, zero, last_sample.to(anchor_ts.dtype))
+        snap_s = None if snap is None else tuple(a[::s] for a in snap)
         boxes_s, conf_s, alive_s = track_batch(
-            cfg, feats_s, anchor_ts_s, anchor_boxes, conf_thresh, frame_stride=1,
+            cfg, feats_s, anchor_ts_s, anchor_boxes, conf_thresh, snap=snap_s,
+            snap_iou=snap_iou, snap_weight=snap_weight, frame_stride=1,
         )
         t_full = torch.arange(T, device=dev)
         i0 = t_full // s
@@ -183,11 +205,12 @@ def track_batch(cfg: TrackerConfig, feats, anchor_ts, anchor_boxes, conf_thresh:
         raise ValueError("feats_strided requires frame_stride > 1")
     T = feats.shape[0]
     templates = extract_template(feats[anchor_ts], anchor_boxes, cfg)  # (A, P, P, C)
-    scan = track_scan_kernel if kernel_takes(cfg) else track_scan_plain
-    fb, fc, fa, bb, bc, ba = (
-        v.transpose(0, 1)
-        for v in scan(feats, anchor_ts, anchor_boxes, templates, cfg, conf_thresh)
-    )  # each (A, T, ...)
+    if kernel_takes(cfg) and snap is None:
+        outs = track_scan_kernel(feats, anchor_ts, anchor_boxes, templates, cfg, conf_thresh)
+    else:
+        outs = track_scan_plain(feats, anchor_ts, anchor_boxes, templates, cfg, conf_thresh,
+                                snap=snap, snap_iou=snap_iou, snap_weight=snap_weight)
+    fb, fc, fa, bb, bc, ba = (v.transpose(0, 1) for v in outs)  # each (A, T, ...)
     use_f = torch.arange(T, device=feats.device)[None, :] >= anchor_ts[:, None]  # (A, T)
     boxes = torch.where(use_f[..., None], fb, bb)
     conf = torch.where(use_f, fc, bc)
@@ -225,10 +248,11 @@ def track_from_det(model, vid_proto: dict, det_proto: dict, cfg: TrackerConfig =
     candidates (best score >= ``anchor_thresh``), track them in one
     :func:`track_batch` call padded to a static A, and mark every candidate a
     live track box covers (IoU > ``cover_thresh``) until ``max_tracks`` or
-    full coverage. ``frames_u8`` (T, H, W, 3) uint8 skips the frame files
-    (frames at ``opts.image_hw`` when it is set)."""
-    if opts.snap_weight > 0.0:
-        raise NotImplementedError("detection snapping is not ported yet (ROADMAP.md, Queue 1)")
+    full coverage. With ``opts.snap_weight`` > 0 the tracks snap to the
+    candidate set (best score >= ``anchor_thresh``), per frame in arrays
+    padded to a multiple of 8 slots, as in the JAX stage. ``frames_u8``
+    (T, H, W, 3) uint8 skips the frame files (frames at ``opts.image_hw``
+    when it is set)."""
     metrics = StageMetrics("track")
     frame_ids = [f["frame"] for f in vid_proto["frames"]]
     frame_index = {f: i for i, f in enumerate(frame_ids)}
@@ -254,6 +278,18 @@ def track_from_det(model, vid_proto: dict, det_proto: dict, cfg: TrackerConfig =
 
     # --- greedy anchor rounds (host)
     cand_t, cand_boxes, cand_scores = _candidate_dets(det_proto, frame_index, opts.anchor_thresh)
+    snap = None
+    if opts.snap_weight > 0.0 and len(cand_t):
+        counts = np.bincount(cand_t, minlength=T)
+        npad = max(8, int(-(-counts.max() // 8) * 8))
+        sb = np.zeros((T, npad, 4), np.float32)
+        ss = np.zeros((T, npad), np.float32)
+        sv = np.zeros((T, npad), bool)
+        fill = np.zeros(T, np.int64)
+        for i, t in enumerate(cand_t):
+            sb[t, fill[t]], ss[t, fill[t]], sv[t, fill[t]] = cand_boxes[i], cand_scores[i], True
+            fill[t] += 1
+        snap = tuple(torch.from_numpy(a).to(dev) for a in (sb, ss, sv))
     covered = np.zeros(len(cand_t), dtype=bool)
     all_boxes, all_conf, all_alive, all_anchor = [], [], [], []
     while len(all_boxes) < opts.max_tracks and not covered.all():
@@ -281,7 +317,8 @@ def track_from_det(model, vid_proto: dict, det_proto: dict, cfg: TrackerConfig =
         with record_function("track.scan"):
             boxes, conf, alive = track_batch(
                 cfg, feats, torch.from_numpy(np.asarray(cand_t)[sel]).to(dev),
-                torch.from_numpy(cand_boxes[sel]).to(dev), opts.conf_thresh,
+                torch.from_numpy(cand_boxes[sel]).to(dev), opts.conf_thresh, snap=snap,
+                snap_iou=opts.snap_iou, snap_weight=opts.snap_weight,
                 frame_stride=opts.frame_stride, feats_strided=stride > 1,
                 full_t=T if stride > 1 else None,
             )
