@@ -168,13 +168,34 @@ Phases, each synchronised and each fatal on failure:
    1 and 2, and the tiny stream with EMA at both strides and engines, card
    == CPU over 12 frames.
 
+14. training: one tiny float32 step of the detector and of the tracker's
+   "pair" and "aware" recipes, the same weights and batch on the card and
+   on the CPU (loss within 1e-5 relative; every gradient within 1e-4 of
+   its tensor's largest magnitude, the tracker's 1e-3: see
+   tests/test_torch_tracker_train.py), then the optimizer on the card
+   given the CPU's gradients (parameters within 1e-6); TRAIN_STEPS steps
+   of the ``base`` detector (C=31, 240×320, batch 8, 64 ROIs, cosine
+   schedule) and of the default tracker for each recipe ("aware" on the
+   hard tier), losses finite and the mean of the last 5 below the first 5,
+   ms a step (CUDA events), steps/s, peak memory and the device time of a
+   step by kind of kernel (torch.profiler) printed; the trainer's
+   held-out eval (``evaluate_heldout_map``) with the trained ``base``
+   weights, which must launch kernel C (its count is C's
+   ``launches_train``), C's keep sets equal to its plain version on the
+   eval's own (frames × 31, 64) problems; a train-state save, load and
+   resume, bit for bit (cuDNN deterministic for that check); the
+   ``train_detector`` tool through ``main`` with ``--eval_every`` on the
+   card, whose checkpoint ``load_params`` loads into the fused pipeline's
+   detector. Prints "phase 14 took N s".
+
 Around each of phases 5–8, 11 and 12 the kernels' launch counters are
 zeroed just before and read just after; a kernel's ``launches`` in the
 record is the count from its own path (A, B: fused slice; C: stream; D:
 frame NMS; E, F: staged path); A's record also holds
 ``launches_staged_chain`` (phase 11), its ``mgp_shape`` times and its
 ``float32_shapes`` times (phase 3), A's and F's ``launches_staged_sweep``
-(phase 12); phase 13 counts its own runs apart. B–E are then ranked by their
+(phase 12); phase 13 counts its own runs apart, phase 14 its eval's C
+(``launches_train``). B–E are then ranked by their
 device loss over phases 5–8, launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -256,7 +277,10 @@ PROFILE_ATTEMPTS = 3
 
 def device_records(fn, iters: int, kernel: str | None = None) -> list:
     """(name, µs) of every device activity (kernels, copies, fills) of
-    ``iters`` calls of ``fn``, from torch.profiler's CUPTI records.
+    ``iters`` calls of ``fn``, from torch.profiler's CUPTI records. A
+    ``record_function`` range that the profiler also lays on the device's
+    timeline (``Optimizer.step#...``: a user annotation, spanning kernels
+    listed on their own) is no activity and is left out.
 
     A trace now and then comes back without the records of a kernel that
     ran (once in the smoke run's ~20 traces on the H100, at a shape whose
@@ -273,7 +297,8 @@ def device_records(fn, iters: int, kernel: str | None = None) -> list:
                 fn()
             torch.cuda.synchronize()
         recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
         if any(kernel is None or kernel in name for name, _ in recs):
             return recs
         log(f"profiler: trace {attempt} of {iters} calls holds no device record of "
@@ -2797,6 +2822,384 @@ def phase_options(dev, kernels, card, slice_cfg, slice_fps, sweep_ctx, stream_op
                 launches=next(iter(launches.values())))
 
 
+# ---------------------------------------------------------------- phase 14
+
+TRAIN_STEPS = 30  # full-width steps of each trainer
+TRAIN_B, TRAIN_R = 8, 64  # the train_detector tool's batch and ROIs
+TRAIN_LR = 1e-3
+BF16_OPS_PER_S = 989e12  # tensor cores, dense (the same data sheet)
+
+
+def detector_step_ops(det, hw, batch, rois):
+    """(bf16 operations, float32 operations) of one training step: the
+    forward's convolutions (bf16) and its ROI align and head (float32
+    matmuls), counted from the model's shapes, times 3 (the backward
+    computes a gradient for the input and one for the weights)."""
+    bb = det.backbone
+    h, w = -(-hw[0] // 2), -(-hw[1] // 2)
+    conv = 2 * 49 * 3 * bb.config.stem_features * h * w
+    h, w = -(-h // 2), -(-w // 2)  # the max-pool
+    for blk in bb.blocks:
+        s = blk.conv0.stride[0]
+        h, w = -(-h // s), -(-w // s)
+        cin, cout = blk.conv0.in_channels, blk.conv0.out_channels
+        conv += 2 * 9 * (cin + cout) * cout * h * w
+        if blk.has_proj:
+            conv += 2 * cin * cout * h * w
+    head = det.head
+    P = det.config.roi_pool
+    C_out = bb.out_features
+    pool = 2 * P * h * w * C_out + 2 * P * P * w * C_out
+    mlp = 2 * (head.fc0.in_features * head.fc0.out_features
+               + head.fc1.in_features * head.fc1.out_features
+               + head.cls.in_features * (head.cls.out_features + head.bbox.out_features))
+    return 3 * batch * conv, 3 * batch * rois * (pool + mlp)
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def compare_grads(label, got, want, rel):
+    """Every gradient within ``rel`` of its CPU tensor's largest magnitude;
+    returns the worst ratio."""
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+        assert err <= rel, f"{label}: the gradient of {k} differs by {err:.2e} of its largest"
+        worst = max(worst, err)
+    return worst
+
+
+def train_step_card_vs_cpu(label, model_cpu, loss_fn, batch, dev, grad_rel, max_norm):
+    """One step's loss and gradients on the card against the CPU (the same
+    weights and batch), then the optimizer on the card given the CPU's
+    gradients against the CPU's: returns (loss diff, worst grad ratio,
+    worst parameter diff)."""
+    import copy
+
+    from vdetlib_tpu_torch.nn.train import make_optimizer
+
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    losses, grads = {}, {}
+    for m, d in ((model_cpu, "cpu"), (model_dev, dev)):
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m, {k: v.to(d) for k, v in batch.items()})
+        loss.backward()
+        losses[str(d)], grads[str(d)] = float(loss.detach()), grads_of(m)
+    want = losses["cpu"]
+    got = losses[str(dev)]
+    assert math.isfinite(got) and abs(got - want) <= 1e-5 * abs(want), \
+        f"{label}: loss {got} on the card, {want} on the CPU"
+    worst = compare_grads(label, grads[str(dev)], grads["cpu"], grad_rel)
+    opts = [make_optimizer(m.parameters(), TRAIN_LR, max_norm=max_norm)
+            for m in (model_cpu, model_dev)]
+    for p_dev, p_cpu in zip(model_dev.parameters(), model_cpu.parameters()):
+        p_dev.grad.copy_(p_cpu.grad)
+    for o in opts:
+        o.step()
+    p_err = 0.0
+    for (n, a), b in zip(model_cpu.named_parameters(), model_dev.parameters()):
+        a, b = a.detach(), b.detach().cpu()
+        err = float((a - b).abs().max()) / max(1.0, float(a.abs().max()))
+        assert err <= 1e-6, f"{label}: the update of {n} differs by {err:.2e} on the card"
+        p_err = max(p_err, err)
+    return abs(got - want) / abs(want), worst, p_err
+
+
+def tiny_train_cases(dev):
+    """The card-vs-CPU step of the tiny float32 detector and of the float32
+    tracker's two recipes at 96×128 (tests/test_torch_train*.py's sizes)."""
+    from vdetlib_tpu_torch.cli.train_detector import BatchOptions
+    from vdetlib_tpu_torch.data.synth import SynthConfig, hard_config, make_video
+    from vdetlib_tpu_torch.nn import tracker_train as ttt
+    from vdetlib_tpu_torch.nn import train as ttrain
+
+    det, trk, trk_cfg = tiny_models("cpu")
+    sv = make_video(SynthConfig(num_frames=8, height=96, width=128, num_classes=4, seed=1))
+    batch = ttrain.make_training_batch(sv, np.random.default_rng(3), BatchOptions(2, 16, True), 4)
+    out = {"detector": train_step_card_vs_cpu("tiny detector step", det, ttrain.loss_and_terms,
+                                              batch, dev, 1e-4, 10.0)}
+    hard = [make_video(hard_config(num_frames=24, height=96, width=128, seed=200 + i))
+            for i in range(2)]
+    for recipe in ("pair", "aware"):
+        rng = np.random.default_rng(3)
+        b = (ttt.make_tracker_batch_aware(hard, rng, 8, trk_cfg) if recipe == "aware"
+             else ttt.make_tracker_batch(hard, rng, 8))
+        fn = ttt.tracker_loss_for(recipe)
+        out[f"tracker {recipe}"] = train_step_card_vs_cpu(
+            f"tiny tracker step ({recipe})", trk, lambda m, bb, fn=fn: fn(m, trk_cfg, bb), b, dev,
+            1e-3, 5.0)
+    return out
+
+
+def timed_steps(step_fn, batches):
+    """Runs ``step_fn`` on each batch; returns (losses, ms a step by CUDA events)."""
+    losses, ms = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = step_fn(b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(aux["loss"]))
+    return losses, ms
+
+
+def device_breakdown(label, fn, wall_ms, iters=3):
+    """Device time of ``iters`` calls of ``fn`` (one training step each) by
+    kind of kernel, from torch.profiler's CUPTI records, and the device's
+    idle share of ``wall_ms`` a step."""
+    kinds = {"convolution": ("conv", "cudnn", "fprop", "dgrad", "wgrad"),
+             "matmul": ("gemm", "xmma", "cutlass"),
+             "optimizer": ("multi_tensor", "foreach"), "copy or fill": ("memcpy", "memset")}
+    by_kind = {}
+    for name, us in device_records(fn, iters):
+        low = name.lower()
+        kind = next((k for k, keys in kinds.items() if any(x in low for x in keys)),
+                    "elementwise and reductions")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / iters / 1e3
+    busy = sum(by_kind.values())
+    log(f"{label}: device {busy:.2f} ms a step of {wall_ms:.2f} ms wall (idle "
+        f"{max(0.0, 1 - busy / wall_ms):.0%}): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return dict(device_ms=busy, by_kind=by_kind)
+
+
+def check_falls(label, losses):
+    assert all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite: {losses}"
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    assert last < first, f"{label}: the loss did not fall ({first:.4f} -> {last:.4f})"
+    return first, last
+
+
+def full_width_detector(dev, card):
+    """TRAIN_STEPS steps of the base detector at the train_detector tool's
+    recipe (augmentation, cosine schedule) at full width."""
+    from vdetlib_tpu_torch.cli.train_detector import BatchOptions
+    from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
+    from vdetlib_tpu_torch.nn import train as ttrain
+    from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.weights import init_detector
+
+    videos = [make_video(SynthConfig(num_frames=16, height=H, width=W, num_classes=C,
+                                     seed=300 + i)) for i in range(4)]
+    rng = np.random.default_rng(0)
+    opts = BatchOptions(TRAIN_B, TRAIN_R, True)
+    batches = [ttrain.make_training_batch(videos[int(rng.integers(0, len(videos)))], rng, opts, C)
+               for _ in range(TRAIN_STEPS)]
+    det = init_detector(detector_preset("base", num_classes=C), torch.Generator().manual_seed(0),
+                        device=dev)
+    opt = ttrain.make_optimizer(det.parameters(), TRAIN_LR, schedule="cosine",
+                                total_steps=TRAIN_STEPS)
+    det.train()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(lambda b: ttrain.train_step(det, opt, b), batches)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = check_falls("base detector", losses)
+    step_ms = float(np.median(ms[3:]))
+    bf16_ops, f32_ops = detector_step_ops(det, (H, W), TRAIN_B, TRAIN_R)
+    bound_ms = (bf16_ops / BF16_OPS_PER_S + f32_ops / F32_OPS_PER_S) * 1e3
+    log(f"base detector training on {card}: {TRAIN_STEPS} steps (C={C}, {H}x{W}, batch "
+        f"{TRAIN_B}, {TRAIN_R} ROIs, cosine), loss {first:.4f} -> {last:.4f} (means of the "
+        f"first and last 5); {step_ms:.2f} ms a step (median of steps 3-{TRAIN_STEPS - 1}, CUDA "
+        f"events; first {ms[0]:.1f} ms), {1e3 / step_ms:.2f} steps/s; peak memory "
+        f"{peak / 2**20:.1f} MiB; operations bound {bound_ms:.3f} ms ({bf16_ops / 1e9:.1f} G "
+        f"bf16 convolution + {f32_ops / 1e9:.1f} G float32 head operations)")
+    dev_rec = device_breakdown("base detector step", lambda: ttrain.train_step(
+        det, opt, batches[-1]), step_ms)
+    return det, dict(step_ms=step_ms, first_ms=ms[0], peak_mib=peak / 2**20, bound_ms=bound_ms,
+                     loss_first=first, loss_last=last, **dev_rec)
+
+
+def full_width_tracker(dev, card, recipe):
+    """TRAIN_STEPS steps of the default TrackerConfig at 240×320, batch 8
+    ("aware": the hard tier's videos and sampler)."""
+    from vdetlib_tpu_torch.data.synth import SynthConfig, hard_config, make_video
+    from vdetlib_tpu_torch.nn import tracker_train as ttt
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+    from vdetlib_tpu_torch.weights import init_tracker
+
+    cfg = TrackerConfig()
+    mk = hard_config if recipe == "aware" else SynthConfig
+    videos = [make_video(mk(num_frames=24, height=H, width=W, seed=400 + i)) for i in range(3)]
+    rng = np.random.default_rng(0)
+    batches = [ttt.make_tracker_batch_aware(videos, rng, TRAIN_B, cfg) if recipe == "aware"
+               else ttt.make_tracker_batch(videos, rng, TRAIN_B) for _ in range(TRAIN_STEPS)]
+    trk = init_tracker(cfg, torch.Generator().manual_seed(1), device=dev).train()
+    opt = ttt.make_tracker_optimizer(trk, TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(lambda b: ttt.tracker_train_step(trk, cfg, opt, b, recipe), batches)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = check_falls(f"tracker ({recipe})", losses)
+    step_ms = float(np.median(ms[3:]))
+    log(f"tracker training ({recipe}) on {card}: {TRAIN_STEPS} steps (default TrackerConfig, "
+        f"{H}x{W}, batch {TRAIN_B}), loss {first:.4f} -> {last:.4f}; {step_ms:.2f} ms a step "
+        f"(first {ms[0]:.1f} ms), {1e3 / step_ms:.2f} steps/s; peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    dev_rec = device_breakdown(f"tracker step ({recipe})", lambda: ttt.tracker_train_step(
+        trk, cfg, opt, batches[-1], recipe), step_ms)
+    return dict(step_ms=step_ms, peak_mib=peak / 2**20, loss_first=first, loss_last=last,
+                **dev_rec)
+
+
+def heldout_eval_case(dev, kernels, det):
+    """The trainer's held-out eval with ``det``: kernel C must launch (the
+    count is returned), and C equals its plain version on the eval's own
+    per-class NMS problems."""
+    from vdetlib_tpu_torch.cli.train_detector import evaluate_heldout_map, heldout_problems
+    from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
+    from vdetlib_tpu_torch.kernels import nms_batched as kc
+    from vdetlib_tpu_torch.kernels import nms_grouped as kb
+
+    heldout = [make_video(SynthConfig(num_frames=16, height=H, width=W, num_classes=C,
+                                      seed=10_300 + i)) for i in range(4)]
+    det.eval()
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, per_class = evaluate_heldout_map(det, heldout, C, TRAIN_R)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels, "trainer's held-out eval (phase 14)", ("nms_batched",))
+    assert sum(launches.values()) == launches["nms_batched"], \
+        "the held-out eval launched a kernel other than C"
+    kept = valid = 0
+    for sv in heldout:
+        boxes, scores, ok = heldout_problems(det, sv, TRAIN_R)
+        n = boxes.shape[-2]
+        args = (boxes.reshape(-1, n, 4).contiguous(), scores.reshape(-1, n).contiguous(),
+                ok.reshape(-1, n).contiguous())
+        got = kc.nms_batched_kernel(*args, 0.3)
+        want = kb.nms_unsorted_fixpoint(*args, 0.3)
+        assert torch.equal(got, want), f"kernel C differs from its plain version on {sv.video}"
+        kept += int(got.sum())
+        valid += int(args[2].sum())
+    log(f"trainer's held-out eval: mAP@0.5 {m:.4f} over {len(heldout)} videos of 16 frames "
+        f"({len(per_class)} classes with ground truth), {wall:.2f} s; kernel C launched "
+        f"{launches['nms_batched']} times, keep sets equal to the plain version on the eval's "
+        f"problems ({kept} of {valid} valid kept, {TRAIN_R} slots)")
+    return launches["nms_batched"], m
+
+
+def resume_case(dev, tmp):
+    """A train-state save after two steps, a load into a fresh state of
+    another seed, and the third step in both, bit for bit (cuDNN's
+    deterministic algorithms for the check: its default backward
+    algorithms may sum in any order)."""
+    import os
+
+    from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
+    from vdetlib_tpu_torch.nn import train as ttrain
+    from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_train_state, save_train_state
+    from vdetlib_tpu_torch.weights import init_detector
+
+    from vdetlib_tpu_torch.cli.train_detector import BatchOptions
+
+    sv = make_video(SynthConfig(num_frames=8, height=96, width=128, num_classes=4, seed=2))
+    rng = np.random.default_rng(9)
+    batches = [ttrain.make_training_batch(sv, rng, BatchOptions(4, 32, True), 4)
+               for _ in range(3)]
+
+    def state(seed):
+        m = init_detector(detector_preset("tiny", num_classes=4),
+                          torch.Generator().manual_seed(seed), device=dev)
+        o = ttrain.make_optimizer(m.parameters(), TRAIN_LR, schedule="cosine", total_steps=20)
+        return ttrain.init_train_state(m, o)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        st = state(0)
+        for b in batches[:2]:
+            ttrain.train_step(st.model, st.opt, b)
+            st.step += 1
+        path = os.path.join(tmp, "train_state.pt")
+        save_train_state(path, st)
+        want = ttrain.train_step(st.model, st.opt, batches[2])
+        got_state = load_train_state(path, state(5))
+        assert got_state.step == 2 and got_state.opt.updates_made() == 2
+        got = ttrain.train_step(got_state.model, got_state.opt, batches[2])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(got["loss"], want["loss"]), "the resumed step's loss differs"
+    for (n, a), b in zip(got_state.model.state_dict().items(), st.model.state_dict().values()):
+        assert torch.equal(a, b), f"the resumed step's {n} differs"
+    sa, sb = got_state.opt.state_dict()["state"], st.opt.state_dict()["state"]
+    for i in sb:
+        for k in sb[i]:
+            assert torch.equal(sa[i][k], sb[i][k]), f"the resumed optimizer's {k} of {i} differs"
+    log(f"train state: saved after 2 steps ({os.path.getsize(path)} bytes), loaded into a "
+        f"fresh state, the third step equal bit for bit (parameters, moments, loss)")
+
+
+def tool_case(dev, kernels, tmp):
+    """``train_detector`` through ``main`` on the card with ``--eval_every``;
+    its checkpoint loads into the tiny fused pipeline's detector, which runs."""
+    import io
+    import os
+
+    from vdetlib_tpu_torch.cli import train_detector
+    from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_params
+    from vdetlib_tpu_torch.pipeline.fused import FusedConfig, make_fused_pipeline
+    from vdetlib_tpu_torch.weights import init_detector
+
+    out = os.path.join(tmp, "det.pt")
+    zero_counts(kernels)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_detector.main([out, "--model", "tiny", "--image_hw", "96", "128", "--steps",
+                                  "8", "--eval_every", "4", "--eval_videos", "2",
+                                  "--num_videos", "2", "--frames_per_video", "8",
+                                  "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    assert rc == 0 and os.path.exists(out), "train_detector wrote no checkpoint"
+    launches = read_counts(kernels, "train_detector tool (phase 14)", ("nms_batched",))
+    det = init_detector(detector_preset("tiny", num_classes=4), torch.Generator().manual_seed(9),
+                        device=dev)
+    load_params(out, det)
+    _, trk, trk_cfg = tiny_models(dev)
+    cfg = FusedConfig(image_hw=(96, 128), detect_batch=8, feat_batch=8, anchors_per_round=4,
+                      max_tracks=8, max_paths=16, det_budget=24, out_budget=24,
+                      score_thresh=0.2, anchor_thresh=0.26)
+    frames, rois, roi_mask = tiny_inputs()
+    with torch.no_grad():
+        res = make_fused_pipeline(det, trk, trk_cfg, cfg)(
+            *(torch.from_numpy(a).to(dev) for a in (frames, rois)), None,
+            torch.from_numpy(roi_mask).to(dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(res.det_scores).all() and torch.isfinite(res.det_boxes).all()
+    summary = [x for x in buf.getvalue().splitlines() if x.startswith("trained")]
+    log(f"train_detector --device {dev} (tiny, 8 steps, eval every 4): {wall:.1f} s, "
+        f"C launched {launches['nms_batched']} times by its evals; {summary[0]}; its checkpoint "
+        f"({os.path.getsize(out)} bytes) loaded into the fused pipeline's detector, which ran")
+
+
+def phase_training(dev, kernels, card):
+    """Phase 14: the trainers on the card (see the module docstring)."""
+    import tempfile
+
+    cases = tiny_train_cases(dev)
+    log("tiny float32 training steps, card == CPU: " + "; ".join(
+        f"{k} loss {v[0]:.1e} relative, gradients {v[1]:.1e} of their largest, the update "
+        f"given the CPU's gradients {v[2]:.1e}" for k, v in cases.items()))
+    det, det_rec = full_width_detector(dev, card)
+    trk_recs = {r: full_width_tracker(dev, card, r) for r in ("pair", "aware")}
+    launches, m = heldout_eval_case(dev, kernels, det)
+    del det
+    with tempfile.TemporaryDirectory() as tmp:
+        resume_case(dev, tmp)
+        tool_case(dev, kernels, tmp)
+    return dict(launches=launches, heldout_map=m, detector=det_rec, tracker=trk_recs)
+
+
+
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
@@ -2902,6 +3305,10 @@ def main(argv=None) -> int:
     options = phase_options(dev, kernels, card, slice_cfg, fps, sweep_ctx, stream_opts, records)
     torch.cuda.synchronize()
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    training = phase_training(dev, kernels, card)
+    torch.cuda.synchronize()
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
                 "nms_batched": stream_counts, "nms_sorted": nms_counts,
@@ -2913,6 +3320,7 @@ def main(argv=None) -> int:
         records[name]["launches_staged_sweep"] = sweep_counts[name]
         records[name]["launches_options"] = options["launches"][name]  # phase 13, EMA run
     records["track_scan"]["options_plain_ms"] = options["scan"]
+    records["nms_batched"]["launches_train"] = training["launches"]  # phase 14's eval
     rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

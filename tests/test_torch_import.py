@@ -55,6 +55,7 @@ def test_slice_modules_listed():
         "pipeline.checkpoint", "pipeline.runner", "pipeline.fused_runner", "dist.sharding",
         "evaluation.vid_map", "evaluation.calibration", "video.perturb", "cli.pipeline_tool",
         "kernels.seq_nms_host", "utils.prng", "cli.mgp", "cli.rescore", "cli.seq_nms",
+        "nn.train", "nn.tracker_train", "cli.train_detector", "cli.train_tracker",
     ):
         assert "vdetlib_tpu_torch." + m in MODULES, m
 
@@ -77,6 +78,12 @@ ENTRY_POINTS = {
                       "vdetlib_tpu_torch.pipeline.fused_runner", "vdetlib_tpu_torch.weights",
                       "vdetlib_tpu_torch.evaluation.vid_map",
                       "vdetlib_tpu_torch.evaluation.calibration"],
+    "train_detector": ["vdetlib_tpu_torch.cli.train_detector", "vdetlib_tpu_torch.nn.train",
+                       "vdetlib_tpu_torch.video.detect", "vdetlib_tpu_torch.kernels.nms",
+                       "vdetlib_tpu_torch.evaluation.vid_map",
+                       "vdetlib_tpu_torch.pipeline.checkpoint"],
+    "train_tracker": ["vdetlib_tpu_torch.cli.train_tracker", "vdetlib_tpu_torch.nn.tracker_train",
+                      "vdetlib_tpu_torch.pipeline.checkpoint"],
 }
 
 

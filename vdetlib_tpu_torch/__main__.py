@@ -12,6 +12,8 @@ TOOLS = {
     "seq_nms": "vdetlib_tpu_torch.cli.seq_nms",
     "stream": "vdetlib_tpu_torch.cli.stream",
     "track": "vdetlib_tpu_torch.cli.track",
+    "train_detector": "vdetlib_tpu_torch.cli.train_detector",
+    "train_tracker": "vdetlib_tpu_torch.cli.train_tracker",
 }
 
 

@@ -437,6 +437,31 @@ def vid_proto_in_memory(sv: SynthVideo) -> dict:
     }
 
 
+def annot_proto(sv: SynthVideo, class_names=None) -> dict:
+    anns = []
+    for k in range(sv.gt_boxes.shape[0]):
+        track = []
+        for t, fid in enumerate(sv.frame_ids):
+            if not sv.gt_visible[k, t]:
+                continue  # out of the camera view (hard tier) — unannotated
+            name = (
+                class_names[sv.gt_classes[k]]
+                if class_names is not None
+                else str(int(sv.gt_classes[k]))
+            )
+            track.append(
+                {
+                    "frame": int(fid),
+                    "bbox": [float(v) for v in sv.gt_boxes[k, t]],
+                    "class": name,
+                    "class_index": int(sv.gt_classes[k]),
+                }
+            )
+        if track:
+            anns.append({"id": k, "track": track})
+    return {"video": sv.video, "annotations": anns}
+
+
 def box_proto(sv: SynthVideo) -> dict:
     """Proposals: jittered ground truth + uniform random boxes."""
     cfg = sv.config

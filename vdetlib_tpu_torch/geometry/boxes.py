@@ -82,6 +82,21 @@ def apply_deltas(boxes, deltas, offset: float = LEGACY_OFFSET):
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
+def encode_deltas(src_boxes, dst_boxes, offset: float = LEGACY_OFFSET, eps: float = 1e-6):
+    """Regression targets (dx, dy, dw, dh) taking src boxes onto dst boxes."""
+    sw, sh = box_wh(src_boxes, offset)
+    scx, scy = box_center(src_boxes, offset)
+    dw_, dh_ = box_wh(dst_boxes, offset)
+    dcx, dcy = box_center(dst_boxes, offset)
+    sw = torch.clamp(sw, min=eps)
+    sh = torch.clamp(sh, min=eps)
+    dx = (dcx - scx) / sw
+    dy = (dcy - scy) / sh
+    dw = torch.log(torch.clamp(dw_, min=eps) / sw)
+    dh = torch.log(torch.clamp(dh_, min=eps) / sh)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def shift_boxes(boxes, shift_xy):
     """Translate (..., 4) boxes by (..., 2) per-box (dx, dy) — the MGP shift."""
     dx, dy = shift_xy[..., 0], shift_xy[..., 1]

@@ -9,6 +9,10 @@ OIHW, dense kernels are transposed. The head's first layer (``Dense_0``, the
 JAX ``_PooledDense``) is laid out (p, q, c) × H, which is the order in which
 the port flattens its pooled (P, P, C) features, so a transpose suffices.
 
+``adam_state_from_optax`` carries an optax Adam state across: ``mu`` and
+``nu`` have the params' tree, so the same mapping applies to them (the
+conv transposes move elements and change no value).
+
 ``init_detector`` / ``init_tracker`` draw fresh weights the way Flax does
 (lecun-normal fan-in, truncated at ±2σ; zero biases; unit GroupNorm scales)
 from a ``torch.Generator``. They cannot give Flax's numbers: the parity
@@ -28,7 +32,8 @@ from vdetlib_tpu_torch.nn.detector import Detector, DetectorConfig
 from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, TrackerNet
 
 __all__ = [
-    "detector_state_from_flax", "init_detector", "init_tracker", "tracker_state_from_flax",
+    "adam_state_from_optax", "detector_state_from_flax", "init_detector", "init_tracker",
+    "tracker_state_from_flax",
 ]
 
 
@@ -89,6 +94,27 @@ def tracker_state_from_flax(params_np) -> dict:
     sd["out.weight"] = _conv(p[f"Conv_{i}"]["kernel"])
     sd["out.bias"] = _vec(p[f"Conv_{i}"]["bias"])
     return sd
+
+
+def adam_state_from_optax(count, mu, nu, state_from_flax, model: nn.Module,
+                          opt: torch.optim.Optimizer) -> dict:
+    """An optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; numpy leaves)
+    → a state_dict for ``opt``, a ``torch.optim.AdamW`` built over
+    ``model.parameters()``.
+
+    ``state_from_flax`` is :func:`detector_state_from_flax` or
+    :func:`tracker_state_from_flax`; ``count`` is the number of updates
+    made, torch's per-parameter ``step``. The parameter groups are
+    ``opt``'s own (learning rate, decay, clip and schedule)."""
+    m, v = state_from_flax(mu), state_from_flax(nu)
+    names = [n for n, _ in model.named_parameters()]
+    groups = opt.state_dict()["param_groups"]
+    if sorted(names) != sorted(m) or sum(len(g["params"]) for g in groups) != len(names):
+        raise ValueError("the optax state does not fit the model and its optimizer")
+    step = float(np.asarray(count))
+    state = {i: {"step": torch.tensor(step), "exp_avg": m[n], "exp_avg_sq": v[n]}
+             for i, n in enumerate(names)}
+    return {"state": state, "param_groups": groups}
 
 
 def _lecun_init_(module: nn.Module, generator: torch.Generator) -> None:
