@@ -188,6 +188,34 @@ Phases, each synchronised and each fatal on failure:
    card, whose checkpoint ``load_params`` loads into the fused pipeline's
    detector. Prints "phase 14 took N s".
 
+15. serve: the serving daemon (``cli/serve.py``) over phase 10's three
+   videos, queued as ``NAME.vid.json`` (placeholder paths) and
+   ``NAME.box.json`` with the frames handed to ``serve_loop`` in memory,
+   with the ``base`` detector (C=31, 240×320, R=64) and the default tracker
+   loaded from phase 10's ``save_params`` checkpoints through
+   ``build_models`` (``--detector_weights``/``--tracker_weights``; equal
+   bit for bit to phase 10's loaded models), at ``serve_config``'s config
+   with only ``track.anchor_thresh`` replaced by phase 10's calibrated
+   value: ``--engine fused`` and then ``--engine staged``, each ``once``
+   into its own workdir. Every video must be served by the engine asked
+   for; the fused files must equal ``FusedEngine.load`` + ``run`` and the
+   staged files ``run_video``, byte for byte; A, B (fused only) and F must
+   launch (B never on the staged engine); no lock and no quarantine may be
+   left; a second pass must take no video and write nothing; with
+   ``--engine fused`` a video without its box proto (its detect stage in
+   its workdir) must be served by the staged engine, equal to
+   ``run_video``; a ``KernelError`` injected into the fused engine must
+   leave ``serve_loop`` with no staged retry and no quarantine. Then the
+   host tools through the port's dispatcher over the fused outputs and the
+   videos' annotations: ``calibrate`` (rank, and platt fit on the three
+   pairs with ``--save_model``), ``write_submission --calibration`` (every
+   line in tests/test_vid_rehearsal.py's format, frames numbered globally)
+   and ``eval_vid --json_out`` (its mAP equal to ``vid_map`` of the same
+   pairs, printed, not gated). Prints each engine's ms per video from the
+   lock to ``final.json`` (synchronised), its frames/s beside phase 10's
+   fused sweep and phase 12's staged sweep, its peak device memory, and
+   "phase 15 took N s".
+
 Around each of phases 5–8, 11 and 12 the kernels' launch counters are
 zeroed just before and read just after; a kernel's ``launches`` in the
 record is the count from its own path (A, B: fused slice; C: stream; D:
@@ -195,7 +223,8 @@ frame NMS; E, F: staged path); A's record also holds
 ``launches_staged_chain`` (phase 11), its ``mgp_shape`` times and its
 ``float32_shapes`` times (phase 3), A's and F's ``launches_staged_sweep``
 (phase 12); phase 13 counts its own runs apart, phase 14 its eval's C
-(``launches_train``). B–E are then ranked by their
+(``launches_train``), phase 15 A's, B's and F's on each engine
+(``launches_serve``). B–E are then ranked by their
 device loss over phases 5–8, launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -212,6 +241,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2045,12 +2075,13 @@ def file_bytes(results):
     return [{k: pathlib.Path(r[k]).read_bytes() for k in ("final", "tubelets")} for r in results]
 
 
-def phase_sweep(dev, kernels, ctx, slice_fps, card):
+def phase_sweep(dev, kernels, ctx, slice_fps, card, ckpt_dir):
     """Phase 10: checkpoints of phase 5's models (drawn again from their
-    seeds), then ``run_videos_fused`` over phase 5's videos with the loaded
-    models; returns the sweep's kernel launches, counted apart from phases
-    5-9, and for phase 12 the loaded models, the entries, the calibrated
-    ``anchor_thresh`` and the sweep's frames/s."""
+    seeds) saved into ``ckpt_dir``, then ``run_videos_fused`` over phase 5's
+    videos with the loaded models; returns the sweep's kernel launches,
+    counted apart from phases 5-9, and for phases 12 and 15 the loaded
+    models, the entries, the calibrated ``anchor_thresh``, the sweep's
+    frames/s and the checkpoints' paths."""
     import os
     import tempfile
 
@@ -2064,8 +2095,8 @@ def phase_sweep(dev, kernels, ctx, slice_fps, card):
     cfg = sweep_config(pipe.cfg)
     with tempfile.TemporaryDirectory() as tmp:
         # checkpoints: into models drawn from other seeds, on the card
-        paths = {"detector": os.path.join(tmp, "detector.pt"),
-                 "tracker": os.path.join(tmp, "tracker.pt")}
+        paths = {"detector": os.path.join(ckpt_dir, "detector.pt"),
+                 "tracker": os.path.join(ckpt_dir, "tracker.pt")}
         save_params(paths["detector"], pipe.det_model)
         save_params(paths["tracker"], pipe.trk_model)
         det, trk, _ = base_models(dev, seed=1)
@@ -2146,7 +2177,7 @@ def phase_sweep(dev, kernels, ctx, slice_fps, card):
 
     fps = sum(VIDEO_LENGTHS) / wall
     ctx12 = {"models": models, "entries": entries, "anchor_thresh": cfg.track.anchor_thresh,
-             "fps": fps}
+             "fps": fps, "checkpoints": paths}
     log(f"sweep on {card}: {sum(VIDEO_LENGTHS)} frames in {wall:.3f} s = {fps:.2f} frames/s "
         f"(run_videos_fused: load, upload, pipeline, protos), against phase 5's pipeline-only "
         f"{slice_fps:.2f} frames/s; prefetch wait {record['prefetch_wait_s']:.4f} s; peak "
@@ -2583,6 +2614,7 @@ def phase_staged_sweep(dev, kernels, ctx, card):
         f"{names[0]} and {names[1]} videos {wall2:.3f} s against their direct chain "
         f"{direct_two:.3f} s ({direct_two / wall2:.2f}x); resume {resume_s:.3f} s; peak device "
         f"memory {peak / 2**20:.1f} MiB")
+    ctx["staged_fps"] = fps  # phase 15's reference rate
     return launches
 
 
@@ -3200,6 +3232,292 @@ def phase_training(dev, kernels, card):
 
 
 
+# ---------------------------------------------------------------- phase 15
+
+SUBMISSION_LINE = (r"^\d+ \d+ \d+\.\d{6} -?\d+\.\d{2} -?\d+\.\d{2} -?\d+\.\d{2} "
+                   r"-?\d+\.\d{2}$")  # tests/test_vid_rehearsal.py's format
+
+
+def serve_queue(entries, data_dir, with_box=True):
+    """Phase 10's entries as a serving queue: ``NAME.vid.json`` (placeholder
+    paths) and ``NAME.box.json`` under ``data_dir``; returns the frames by name."""
+    import os
+
+    from vdetlib_tpu_torch.protos import proto_dump
+
+    os.makedirs(data_dir, exist_ok=True)
+    for vid, box, _ in entries:
+        proto_dump(vid, os.path.join(data_dir, f"{vid['video']}.vid.json"))
+        if with_box:
+            proto_dump(box, os.path.join(data_dir, f"{vid['video']}.box.json"))
+    return {vid["video"]: frames for vid, _, frames in entries}
+
+
+def tree_bytes(root):
+    """{relative path: bytes} of every file under ``root``."""
+    import pathlib
+
+    root = pathlib.Path(root)
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def tree_stamps(root):
+    import pathlib
+
+    return {str(p): p.stat().st_mtime_ns for p in pathlib.Path(root).rglob("*")}
+
+
+def serve_engine(dev, kernels, label, data, work, models, cfg, frames, need):
+    """One ``serve_loop`` pass over the queue: its records, launches and peak
+    memory."""
+    from vdetlib_tpu_torch.cli.serve import serve_loop
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    recs = serve_loop(data, work, models, cfg, engine=label, once=True, device=dev,
+                      frames=frames)
+    torch.cuda.synchronize()
+    launches = read_counts(kernels, f"serve --engine {label} (phase 15)", need)
+    return recs, launches, torch.cuda.max_memory_allocated()
+
+
+def run_tool(tool, argv):
+    """A tool of the port through its dispatcher; (return code, its stdout)."""
+    import io
+
+    from vdetlib_tpu_torch.__main__ import dispatch
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dispatch(tool, argv)
+    return rc, out.getvalue()
+
+
+def host_tools(tmp, work, entries):
+    """Phase 15 (b): ``calibrate`` (rank; platt fit on the three (det, annot)
+    pairs with ``--save_model``), ``write_submission --calibration`` and
+    ``eval_vid --json_out`` over the fused engine's outputs; returns the mAP."""
+    import os
+    import re
+    import shutil
+
+    from vdetlib_tpu_torch.data.synth import annot_proto
+    from vdetlib_tpu_torch.evaluation.vid_map import vid_map
+    from vdetlib_tpu_torch.protos import proto_dump, proto_load
+
+    tools = os.path.join(tmp, "tools")
+    os.makedirs(tools)
+    vids, dets, annots = [], [], []
+    for i, (vid, _, _) in enumerate(entries):
+        name = vid["video"]
+        sv = dataclasses.replace(synth(len(vid["frames"]), i), video=name)
+        paths = {k: os.path.join(tools, f"{name}.{k}.json") for k in ("vid", "final", "annot")}
+        proto_dump(vid, paths["vid"])
+        proto_dump(annot_proto(sv), paths["annot"])
+        shutil.copyfile(os.path.join(work, name, "final.json"), paths["final"])
+        vids.append(paths["vid"])
+        dets.append(paths["final"])
+        annots.append(paths["annot"])
+    rc, _ = run_tool("calibrate", dets)
+    assert rc == 0 and all(os.path.exists(d[:-5] + ".cal.json") for d in dets)
+    model = os.path.join(tools, "platt.json")
+    rc, _ = run_tool("calibrate", [*dets, "--method", "platt", "--suffix", ".platt.json",
+                                   "--val_dets", *dets, "--val_annots", *annots,
+                                   "--save_model", model])
+    assert rc == 0 and os.path.exists(model)
+    with open(model) as f:
+        fit = json.load(f)
+    sub = os.path.join(tools, "submission.txt")
+    rc, printed = run_tool("write_submission", [sub, "--pairs",
+                                                *[p for vd in zip(vids, dets) for p in vd],
+                                                "--calibration", model])
+    assert rc == 0
+    with open(sub) as f:
+        lines = f.read().splitlines()
+    n_scores = sum(len(d["scores"]) for p in dets for d in proto_load(p)["detections"])
+    assert len(lines) == n_scores > 0, (len(lines), n_scores)
+    pat = re.compile(SUBMISSION_LINE)
+    assert all(pat.match(line) for line in lines), "a submission line is malformed"
+    # frames numbered globally: video i's lines lie after the frames of videos < i
+    lengths = [len(e[0]["frames"]) for e in entries]
+    offsets = np.cumsum([0] + lengths)
+    frames = [int(line.split()[0]) for line in lines]
+    assert min(frames) >= 1 and max(frames) <= offsets[-1]
+    assert sorted({int(np.searchsorted(offsets, f, side="left")) - 1 for f in frames}) == \
+        list(range(len(entries))), "the submission does not cover every video"
+    ev = os.path.join(tools, "eval.json")
+    rc, printed = run_tool("eval_vid", ["--pairs", *[p for da in zip(dets, annots) for p in da],
+                                        "--json_out", ev])
+    assert rc == 0
+    with open(ev) as f:
+        res = json.load(f)
+    m, _ = vid_map([(proto_load(d), proto_load(a)) for d, a in zip(dets, annots)])
+    assert res["mAP"] == m and re.search(rf"^mAP = {m:.4f}$", printed, re.M), \
+        (res["mAP"], m, printed)
+    log(f"host tools on the card's machine: calibrate rank wrote {len(dets)} files; calibrate "
+        f"platt fit {len(fit['per_class'])} classes (global a, b = "
+        f"{fit['global'][0]:.4f}, {fit['global'][1]:.4f}) and saved them; write_submission "
+        f"--calibration wrote {len(lines)} lines over {len(entries)} videos in the rehearsal's "
+        f"format, frames numbered 1..{max(frames)} globally; eval_vid mAP = {m:.4f} == vid_map "
+        f"of the same pairs (random weights: not gated)")
+    return m
+
+
+def phase_serve(dev, kernels, ctx, card):
+    """Phase 15: the serving daemon (``cli/serve.py``) on both engines over
+    phase 10's videos, from phase 10's checkpoints, and the host tools over
+    its outputs; returns the launches of A, B and F by engine."""
+    import os
+    import tempfile
+
+    import vdetlib_tpu_torch.pipeline.runner as runner
+    from vdetlib_tpu_torch.cli import serve
+    from vdetlib_tpu_torch.kernels.build import KernelError
+    from vdetlib_tpu_torch.pipeline.fused_runner import FusedEngine
+    from vdetlib_tpu_torch.protos import proto_dump, proto_load
+
+    entries = ctx["entries"]
+    names = [e[0]["video"] for e in entries]
+    n_frames = sum(len(e[0]["frames"]) for e in entries)
+    ckpt = ctx["checkpoints"]
+    args = serve.parse_args([
+        "DATA", "WORK", "--model", "base", "--num_classes", str(C), "--image_hw", str(H),
+        str(W), "--max_rois", str(R), "--once", "--detector_weights", ckpt["detector"],
+        "--tracker_weights", ckpt["tracker"]])
+    assert (args.model, args.num_classes, args.max_rois, args.device) == ("base", C, R, "cuda")
+    models = serve.build_models(args, dev)
+    for name, a, b in (("detector", ctx["models"].detector, models.detector),
+                       ("tracker", ctx["models"].tracker, models.tracker)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sorted(sa) == sorted(sb) and all(torch.equal(sa[k], sb[k]) for k in sa), \
+            f"build_models' {name} differs from phase 10's loaded one"
+    cfg = serve.serve_config(args)
+    log(f"serve: the daemon's config at --model base (C={C}, {H}x{W}, R={R}), models from phase "
+        f"10's checkpoints through build_models (equal bit for bit); track.anchor_thresh "
+        f"{cfg.track.anchor_thresh} replaced by phase 10's calibrated {ctx['anchor_thresh']:.6f}")
+    cfg = dataclasses.replace(cfg, track=dataclasses.replace(
+        cfg.track, anchor_thresh=ctx["anchor_thresh"]))
+    rates, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        frames = serve_queue(entries, data)
+        work = {e: os.path.join(tmp, f"serve_{e}") for e in ("fused", "staged")}
+
+        # (a) both engines, each against its direct calls, byte for byte
+        recs, launches["fused"], peak_f = serve_engine(
+            dev, kernels, "fused", data, work["fused"], models, cfg, frames,
+            ("flow_level", "nms_grouped", "track_scan"))
+        assert [(r["video"], r["engine"]) for r in recs] == [(n, "fused") for n in names], recs
+        rates["fused"] = (recs, peak_f)
+        engine = FusedEngine(models, cfg)
+        direct = os.path.join(tmp, "direct_fused")
+        for vid, box, fr in entries:
+            det_proto, tubelets = engine.run(vid, engine.load(vid, box, frames=fr))
+            proto_dump(tubelets, os.path.join(direct, vid["video"], "tubelets.json"))
+            proto_dump(det_proto, os.path.join(direct, vid["video"], "final.json"))
+        got = tree_bytes(work["fused"])
+        assert got == tree_bytes(direct), "serve --engine fused differs from FusedEngine"
+        n_dets = [len(json.loads(got[f"{n}/final.json"])["detections"]) for n in names]
+        n_tubes = [len(json.loads(got[f"{n}/tubelets.json"])["tracks"]) for n in names]
+        assert min(n_dets) > 0
+
+        recs, launches["staged"], peak_s = serve_engine(
+            dev, kernels, "staged", data, work["staged"], models, cfg, frames,
+            ("flow_level", "track_scan"))
+        assert [(r["video"], r["engine"]) for r in recs] == [(n, "staged") for n in names], recs
+        assert launches["staged"]["nms_grouped"] == 0, "the staged engine launched kernel B"
+        rates["staged"] = (recs, peak_s)
+        direct = os.path.join(tmp, "direct_staged")
+        for vid, box, fr in entries:
+            runner.run_video(direct, vid, box, models, cfg, frames=fr, device=dev)
+        got_s = tree_bytes(work["staged"])
+        assert got_s == tree_bytes(direct), "serve --engine staged differs from run_video"
+        n_tracks = [len(json.loads(got_s[f"{n}/track.json"])["tracks"]) for n in names]
+        log(f"serve: fused files == FusedEngine.load + run, staged files == run_video, byte for "
+            f"byte, {len(names)} videos (fused final dets {n_dets}, tubelets {n_tubes}; staged "
+            f"tracks {n_tracks}); launches fused {launches['fused']}, staged "
+            f"{launches['staged']}")
+        for w in work.values():
+            left = [p for p in os.listdir(w) if p.endswith(".lock")]
+            left += [p for n in names for p in os.listdir(os.path.join(w, n))
+                     if p == "quarantine.json"]
+            assert not left, f"serve left {left} in {w}"
+
+        # resume: a second pass takes no video and writes nothing
+        for label, w in work.items():
+            stamps = tree_stamps(w)
+            assert serve.serve_loop(data, w, models, cfg, engine=label, once=True, device=dev,
+                                    frames=frames) == []
+            assert tree_stamps(w) == stamps, f"a resumed {label} daemon wrote"
+
+        # a video without proposals (the 50-frame one): the fused daemon hands it
+        # to the staged engine
+        vid0 = dict(entries[1][0], video="synth_nobox")
+        det0 = dict(proto_load(os.path.join(work["staged"], names[1], "detect.json")),
+                    video="synth_nobox")
+        nobox = os.path.join(tmp, "data_nobox")
+        fr_nb = serve_queue([(vid0, None, entries[1][2])], nobox, with_box=False)
+        for w in ("serve_nobox", "direct_nobox"):  # the detect stage, as staged resume reads it
+            proto_dump(det0, os.path.join(tmp, w, "synth_nobox", "detect.json"))
+        recs = serve.serve_loop(nobox, os.path.join(tmp, "serve_nobox"), models, cfg,
+                                engine="fused", once=True, device=dev, frames=fr_nb)
+        assert [(r["video"], r["engine"]) for r in recs] == [("synth_nobox", "staged")], recs
+        runner.run_video(os.path.join(tmp, "direct_nobox"), vid0, None, models, cfg,
+                         frames=entries[1][2], device=dev)
+        got_nb = tree_bytes(os.path.join(tmp, "serve_nobox"))
+        assert got_nb == tree_bytes(os.path.join(tmp, "direct_nobox")) and \
+            "synth_nobox/final.json" in got_nb, "the staged fallback differs from run_video"
+
+        # a kernel error inside the fused engine leaves the daemon: no retry, no quarantine
+        staged_calls = []
+        real_run, real_run_video = FusedEngine.run, runner.run_video
+
+        def failing_run(self, *a, **kw):
+            FusedEngine.run = real_run
+            raise KernelError("CUDA kernel nms_grouped failed to launch: cudaError 700 "
+                              "(injected by chip_smoke.py)")
+
+        def counted_run_video(*a, **kw):
+            staged_calls.append(a[1]["video"])
+            return real_run_video(*a, **kw)
+
+        FusedEngine.run, runner.run_video = failing_run, counted_run_video
+        kwork = os.path.join(tmp, "serve_kernel_error")
+        try:
+            serve.serve_loop(data, kwork, models, cfg, engine="fused", once=True, device=dev,
+                             frames=frames)
+        except KernelError:
+            pass
+        else:
+            raise AssertionError("a KernelError inside the fused engine did not leave serve_loop")
+        finally:
+            FusedEngine.run, runner.run_video = real_run, real_run_video
+        left = sorted(tree_bytes(kwork)) if os.path.isdir(kwork) else []
+        assert staged_calls == [] and left == [], (staged_calls, left)
+        log("serve: the resumed daemons took no video and wrote nothing; --engine fused served "
+            "the video without proposals on the staged engine (== run_video, byte for byte); "
+            "an injected KernelError left serve_loop with no staged retry, no quarantine and "
+            "no lock")
+
+        # (b) the host tools over the fused outputs
+        m = host_tools(tmp, work["fused"], entries)
+
+    for label, ref, ref_name in (("fused", ctx["fps"], "phase 10's fused sweep"),
+                                 ("staged", ctx["staged_fps"], "phase 12's staged sweep")):
+        recs, peak = rates[label]
+        secs = sum(r["seconds"] for r in recs)
+        fps = n_frames / secs
+        log(f"serve --engine {label} on {card}: ms per video from lock to final.json "
+            + ", ".join(f"{r['video']} ({r['frames']} frames) {r['seconds'] * 1e3:.1f}"
+                        for r in recs)
+            + f"; {fps:.2f} frames/s against {ref_name} {ref:.2f} ({fps / ref:.2f}x); peak "
+            f"device memory {peak / 2**20:.1f} MiB")
+    return {"launches": launches, "map": m}
+
+
+
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
@@ -3292,7 +3610,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     phase_stream_engines(kernels, stream_models, stream_ctx)
     torch.cuda.synchronize()
-    _, sweep_ctx = phase_sweep(dev, kernels, slice_ctx, fps, card)
+    ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")  # phases 10 and 15
+    _, sweep_ctx = phase_sweep(dev, kernels, slice_ctx, fps, card, ckpt_dir.name)
     torch.cuda.synchronize()
     slice_cfg, stream_opts = slice_ctx["cfg"], stream_ctx["opts"]
     del stream_models, stream_ctx, slice_ctx
@@ -3309,6 +3628,11 @@ def main(argv=None) -> int:
     training = phase_training(dev, kernels, card)
     torch.cuda.synchronize()
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    served = phase_serve(dev, kernels, sweep_ctx, card)
+    torch.cuda.synchronize()
+    ckpt_dir.cleanup()
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
                 "nms_batched": stream_counts, "nms_sorted": nms_counts,
@@ -3321,6 +3645,8 @@ def main(argv=None) -> int:
         records[name]["launches_options"] = options["launches"][name]  # phase 13, EMA run
     records["track_scan"]["options_plain_ms"] = options["scan"]
     records["nms_batched"]["launches_train"] = training["launches"]  # phase 14's eval
+    for name in ("flow_level", "nms_grouped", "track_scan"):  # phase 15, by engine
+        records[name]["launches_serve"] = {e: n[name] for e, n in served["launches"].items()}
     rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

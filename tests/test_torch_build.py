@@ -94,3 +94,32 @@ def test_concurrent_load_builds_and_opens_once(fake_nvcc, monkeypatch):
     assert len(fake_nvcc) == 1 and len(opened) == 1
     assert all(fn is fns[0] for fn in fns)
     assert fns[0].restype is build.ctypes.c_int
+
+
+def test_kernel_errors_are_their_own_runtime_error(tmp_path, monkeypatch):
+    """A failed launch, a failed ``nvcc`` and a missing toolkit raise
+    ``KernelError``, still a ``RuntimeError``, with their messages."""
+    assert issubclass(build.KernelError, RuntimeError)
+    build.check_launch("flow_level", 0)  # a clean launch raises nothing
+    with pytest.raises(build.KernelError,
+                       match=r"^CUDA kernel nms_grouped failed to launch: cudaError 700$"):
+        build.check_launch("nms_grouped", 700)
+
+    def failing_nvcc(cmd, capture_output=True, text=True):
+        return types.SimpleNamespace(returncode=1, stdout="out", stderr="error: bad")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", failing_nvcc)
+    with pytest.raises(RuntimeError) as err:
+        build.build("track_scan")
+    assert type(err.value) is build.KernelError
+    assert str(err.value) == "nvcc failed on csrc/track_scan.cu:\nout\nerror: bad"
+    assert list((tmp_path / "_build").iterdir()) == []  # no partial library left
+    monkeypatch.undo()
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.Path, "is_file", lambda self: False)
+    with pytest.raises(build.KernelError, match=r"^nvcc not found \(set CUDA_HOME\)"):
+        build.nvcc_path()

@@ -56,6 +56,9 @@ def test_slice_modules_listed():
         "evaluation.vid_map", "evaluation.calibration", "video.perturb", "cli.pipeline_tool",
         "kernels.seq_nms_host", "utils.prng", "cli.mgp", "cli.rescore", "cli.seq_nms",
         "nn.train", "nn.tracker_train", "cli.train_detector", "cli.train_tracker",
+        "cli.serve", "evaluation.submission", "cli.eval_vid", "cli.write_submission",
+        "cli.calibrate", "cli.gen_vid_proto", "video.proposal", "cli.gen_box_proto",
+        "data.vid_dataset", "cli.import_vid", "cli.gen_synth", "utils.visual", "cli.show",
     ):
         assert "vdetlib_tpu_torch." + m in MODULES, m
 
@@ -84,6 +87,10 @@ ENTRY_POINTS = {
                        "vdetlib_tpu_torch.pipeline.checkpoint"],
     "train_tracker": ["vdetlib_tpu_torch.cli.train_tracker", "vdetlib_tpu_torch.nn.tracker_train",
                       "vdetlib_tpu_torch.pipeline.checkpoint"],
+    "serve": ["vdetlib_tpu_torch.cli.serve", "vdetlib_tpu_torch.nn.presets",
+              "vdetlib_tpu_torch.pipeline.checkpoint", "vdetlib_tpu_torch.pipeline.runner",
+              "vdetlib_tpu_torch.pipeline.fused_runner", "vdetlib_tpu_torch.weights",
+              "vdetlib_tpu_torch.kernels.build"],
 }
 
 
@@ -95,6 +102,27 @@ def test_entry_point_imports_with_jax_blocked(name):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == f"ok {len(ENTRY_POINTS[name])}"
+
+
+def test_dispatcher_lists_the_jax_tools():
+    """``python -m vdetlib_tpu_torch`` lists JAX's 20 tools, each module has a
+    ``main``, and the show tools take their name as ``tool``."""
+    import importlib
+    import inspect
+
+    from vdetlib_tpu.cli import TOOLS as JAX_TOOLS
+    from vdetlib_tpu_torch.__main__ import TOOLS
+
+    res = subprocess.run([sys.executable, "-m", "vdetlib_tpu_torch"], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    listed = re.search(r"^tools: (.*)$", res.stdout, re.M).group(1).split(", ")
+    assert listed == sorted(JAX_TOOLS) == sorted(TOOLS)
+    assert len(listed) == 20
+    for tool, mod in TOOLS.items():
+        assert mod == JAX_TOOLS[tool].replace("vdetlib_tpu.", "vdetlib_tpu_torch.", 1)
+        params = inspect.signature(importlib.import_module(mod).main).parameters
+        assert ("tool" in params) == tool.startswith("show_"), tool
 
 
 def test_staged_runner_imports_the_stages():

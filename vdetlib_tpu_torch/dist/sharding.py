@@ -2,7 +2,7 @@
 ``vdetlib_tpu/dist/sharding.py``.
 
 Meshes, sharded pipelines and multi-host runs are not ported yet
-(ROADMAP.md, Queue 1: the remaining surfaces).
+(ROADMAP.md, Queue 1: the last slice).
 """
 
 from __future__ import annotations

@@ -9,6 +9,10 @@ delete ``vdetlib_tpu_torch/_build/`` to force a rebuild. Nothing here runs
 at import time: the CPU tests import every module on a machine with no
 ``nvcc``.
 
+A kernel that cannot be built or launched raises :class:`KernelError`, a
+``RuntimeError`` of its own so that a caller that survives other errors
+(the serving daemon) can let this one through.
+
 Threads of one process (the staged runner's ``workers``) may ask for the
 same kernel at once: each kernel has a lock that ``build`` holds from its
 existence check to its rename and ``load`` holds around its first call, so
@@ -38,6 +42,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into the build log
 )
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built (no toolkit, ``nvcc`` failed)
+    or its launch returned a CUDA error."""
+
 
 # every kernel's C entry point: name → (ctypes argtypes); restype is c_int
 # (the cudaGetLastError() code after the launch)
@@ -95,7 +104,7 @@ def nvcc_path() -> str:
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (set CUDA_HOME): the CUDA kernels are built on a "
             "machine with the CUDA toolkit"
         )
@@ -137,7 +146,7 @@ def build(name: str) -> Path:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{res.stdout}\n{res.stderr}")
+            raise KernelError(f"nvcc failed on csrc/{name}.cu:\n{res.stdout}\n{res.stderr}")
         so.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
         return so
@@ -160,7 +169,11 @@ def load(name: str):
 @functools.lru_cache(maxsize=None)
 def _load(name: str):
     ((symbol, argtypes), _) = KERNELS[name]
-    lib = ctypes.CDLL(str(build(name)))
+    so = build(name)
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError as e:
+        raise KernelError(f"cannot load kernel {name} from {so.name}: {e}") from e
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
@@ -184,4 +197,4 @@ def sm_count(index: int) -> int:
 def check_launch(name: str, rc: int) -> None:
     """Raise if a kernel's launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

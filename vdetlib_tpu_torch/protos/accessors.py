@@ -35,6 +35,11 @@ def boxes_at_frame(box_proto: dict, frame_id: int) -> list[list[float]]:
     return [b["bbox"] for b in box_proto["boxes"] if b["frame"] == frame_id]
 
 
+def dets_at_frame(det_proto: dict, frame_id: int) -> list[dict]:
+    """The detection entries of one frame, in proto order."""
+    return [d for d in det_proto["detections"] if d["frame"] == frame_id]
+
+
 def det_class_indices(det_proto: dict) -> list[int]:
     """Sorted set of class indices present anywhere in the det_proto."""
     idxs = set()
