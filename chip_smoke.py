@@ -9,7 +9,8 @@ Phases, each synchronised and each fatal on failure:
    for matmuls and convolutions, as the float32 reference computes;
 2. build: every hand-written kernel of ``vdetlib_tpu_torch/csrc`` is
    compiled with nvcc (one process per source, all at once, into
-   ``vdetlib_tpu_torch/_build``) and loaded;
+   ``vdetlib_tpu_torch/_build``) and loaded, with the native host NMS
+   (``csrc/nms_host.cpp``, g++) among them;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of its path, each timed three ways beside its bound: the
    wall per call (CUDA events around back-to-back calls), the kernel's
@@ -216,6 +217,27 @@ Phases, each synchronised and each fatal on failure:
    fused sweep and phase 12's staged sweep, its peak device memory, and
    "phase 15 took N s".
 
+16. multihost: a one-rank NCCL group through ``init_multihost`` (from
+   MASTER_ADDR 127.0.0.1, a free port, WORLD_SIZE 1, RANK 0) and its
+   ``(data, model)`` mesh. (a) ``make_sharded_pipeline`` at phase 5's
+   config over V = 2 of its snippets (64 frames, 50 padded to 64): every
+   field equal bit for bit to the two single calls, A's, B's and F's
+   launches twice one call's, its wall beside theirs. (b) One step of
+   phase 14's ``base`` recipe with the mesh against ``train_step`` without
+   it, same batch and state, cuDNN deterministic: gradients, parameters and
+   loss terms within 1e-6 of each tensor's largest; ms a step of each and
+   the gradient all-reduce alone. (c) ``pipeline --multihost --engine
+   fused`` over phase 10's videos (frames in memory) from its checkpoints:
+   each ``final.json`` and ``tubelets.json`` equal byte for byte to direct
+   pipeline calls at the tool's config; ``allreduce_metrics`` returns its
+   input. Then the group is destroyed. (d) Phase 5's MFU: the analytic
+   FLOPs of each call (``utils/flops.py``) over its wall × the bf16
+   tensor-core peak, beside phase 5's frames/s. (e) ``profiling.device_trace``
+   of one fused call: the Chrome trace names ``fused.seq_nms``. (f)
+   ``frame_nms --backend host`` at 512 boxes a frame: the native library's
+   keep sets (``csrc/nms_host.cpp``) equal to the numpy greedy's, both walls
+   printed. Prints "phase 16 took N s".
+
 Around each of phases 5–8, 11 and 12 the kernels' launch counters are
 zeroed just before and read just after; a kernel's ``launches`` in the
 record is the count from its own path (A, B: fused slice; C: stream; D:
@@ -224,7 +246,8 @@ frame NMS; E, F: staged path); A's record also holds
 ``float32_shapes`` times (phase 3), A's and F's ``launches_staged_sweep``
 (phase 12); phase 13 counts its own runs apart, phase 14 its eval's C
 (``launches_train``), phase 15 A's, B's and F's on each engine
-(``launches_serve``). B–E are then ranked by their
+(``launches_serve``), phase 16 theirs in the sharded pipeline and
+``pipeline --multihost`` (``launches_multihost``). B–E are then ranked by their
 device loss over phases 5–8, launches × (device ms − bound ms).
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -247,6 +270,11 @@ import time
 import numpy as np
 import torch
 
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+from vdetlib_tpu_torch.utils.flops import HBM_BYTES_PER_S
+from vdetlib_tpu_torch.utils.flops import PEAK_BF16_FLOPS as BF16_OPS_PER_S
+from vdetlib_tpu_torch.utils.flops import PEAK_F32_FLOPS as F32_OPS_PER_S
+
 H, W = 240, 320  # the bench workload (bench.py)
 R, C, B, A = 64, 31, 32, 8
 VIDEO_LENGTHS = (64, 50, 96)  # 50 pads to the 64-frame bucket
@@ -263,9 +291,6 @@ STAGED_T, DETECT_B, STAGED_R = 96, 8, 128
 PYRAMID = (0.75, 1.0, 1.25)
 PYRAMID_HW = ((176, 240), (304, 400))
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # float32 operations, counted from the plain versions' arithmetic:
 # one IoU = 4 max/min + 2 sub + 2 add (offset) + 2 clamp + 1 mul + 1 add +
 # 1 sub + 1 div + 1 compare; one box area = 2 sub + 2 add + 1 mul
@@ -1453,7 +1478,8 @@ def phase_slice(dev, kernels, profile_dir=None):
                                  videos[-1][2], torch.from_numpy(videos[-1][3]).to(dev)),
                     profile_dir, "profile.txt", "fused.")
     # phase 10 rebuilds the models from their seeds: none stays on the card
-    return launches, n_frames / sum(times), steady, peak, {"cfg": pipe.cfg, "videos": videos}
+    return launches, n_frames / sum(times), steady, peak, {"cfg": pipe.cfg, "videos": videos,
+                                                           "walls": times}
 
 
 def profile_one(run, out_dir, fname, prefix):
@@ -2859,7 +2885,6 @@ def phase_options(dev, kernels, card, slice_cfg, slice_fps, sweep_ctx, stream_op
 TRAIN_STEPS = 30  # full-width steps of each trainer
 TRAIN_B, TRAIN_R = 8, 64  # the train_detector tool's batch and ROIs
 TRAIN_LR = 1e-3
-BF16_OPS_PER_S = 989e12  # tensor cores, dense (the same data sheet)
 
 
 def detector_step_ops(det, hw, batch, rois):
@@ -3518,6 +3543,288 @@ def phase_serve(dev, kernels, ctx, card):
 
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def one_rank_group():
+    """A one-rank NCCL group through ``init_multihost``, from torch's
+    environment (MASTER_ADDR 127.0.0.1, a free port, WORLD_SIZE 1, RANK 0)."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from vdetlib_tpu_torch.dist import make_mesh
+    from vdetlib_tpu_torch.dist.multihost import init_multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0")
+    assert init_multihost(device="cuda"), "init_multihost started no group"
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    mesh = make_mesh()
+    assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+    log(f"multihost: a one-rank NCCL group on port {port} (init_multihost from MASTER_ADDR, "
+        f"MASTER_PORT, WORLD_SIZE, RANK), mesh {tuple(mesh.shape)} (data, model)")
+    return mesh
+
+
+def sharded_case(dev, kernels, mesh, cfg):
+    """(a) make_sharded_pipeline over V = 2 of phase 5's snippets (64 frames
+    and 50 padded to 64) at phase 5's config: bit-equal to the two single
+    calls, with twice one call's launches of A, B and F."""
+    from vdetlib_tpu_torch.pipeline.fused import make_fused_pipeline, make_sharded_pipeline
+
+    det, trk, trk_cfg = base_models(dev)
+    videos = [slice_inputs(T, seed) for seed, T in enumerate(VIDEO_LENGTHS[:2])]
+    frames, rois, masks = (torch.stack([torch.from_numpy(v[i]) for v in videos]).to(dev)
+                           for i in (0, 1, 3))
+    t_valid = [v[2] for v in videos]
+    single = make_fused_pipeline(det, trk, trk_cfg, cfg)
+    sharded = make_sharded_pipeline(det, trk, trk_cfg, cfg, mesh)
+    outs, counts, walls = [], [], []
+    for v in range(2):
+        torch.cuda.synchronize()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        outs.append(single(frames[v], rois[v], t_valid[v], masks[v]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append({n: fn.launches for n, fn in kernels.items()})
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    got = sharded(frames, rois, t_valid, masks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels, "sharded pipeline (phase 16)",
+                           ("flow_level", "nms_grouped", "track_scan"))
+    for name in ("flow_level", "nms_grouped", "track_scan"):
+        assert counts[0][name] == counts[1][name] and launches[name] == 2 * counts[0][name], \
+            f"sharded pipeline: {name} launched {launches[name]} times, single calls {counts}"
+    for field in got._fields:
+        x = getattr(got, field)
+        assert x.shape[0] == 2, field
+        for v in range(2):
+            assert torch.equal(x[v], getattr(outs[v], field)), \
+                f"sharded pipeline: {field} of snippet {v} differs from its single call"
+    log(f"sharded pipeline (V=2, phase 5's config and snippets of 64 and 50 frames, gathered "
+        f"by NCCL's all_gather, bool fields as uint8): every field == the single calls bit for "
+        f"bit; launches {launches} = 2 x one call's; wall "
+        f"{wall * 1e3:.1f} ms against the single calls' {sum(walls) * 1e3:.1f} ms "
+        f"({walls[0] * 1e3:.1f} + {walls[1] * 1e3:.1f}): {wall / sum(walls):.3f}x")
+    return launches, wall / sum(walls)
+
+
+def sharded_train_case(dev, mesh):
+    """(b) One step of phase 14's base recipe (batch 8, 64 ROIs, augmentation,
+    cosine) with ``mesh`` against ``train_step`` without one, same batch and
+    state, cuDNN deterministic: gradients, parameters and loss terms within
+    1e-6 of each tensor's largest; then 20 more steps of each, taken in
+    turn and timed, and the gradient all-reduce alone."""
+    from vdetlib_tpu_torch.cli.train_detector import BatchOptions
+    from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
+    from vdetlib_tpu_torch.dist import shard_batch
+    from vdetlib_tpu_torch.nn import train as ttrain
+    from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.weights import init_detector
+
+    sv = make_video(SynthConfig(num_frames=16, height=H, width=W, num_classes=C, seed=300))
+    batch = ttrain.make_training_batch(sv, np.random.default_rng(0),
+                                       BatchOptions(TRAIN_B, TRAIN_R, True), C)
+    runs, steps = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for label, m in (("plain", None), ("sharded", mesh)):
+        det = init_detector(detector_preset("base", num_classes=C),
+                            torch.Generator().manual_seed(0), device=dev)
+        det.train()
+        opt = ttrain.make_optimizer(det.parameters(), TRAIN_LR, schedule="cosine",
+                                    total_steps=TRAIN_STEPS)
+        b = batch if m is None else shard_batch(m, batch)
+        terms = ttrain.train_step(det, opt, b, mesh=m)
+        torch.cuda.synchronize()
+        runs[label] = dict(terms={k: float(v) for k, v in terms.items()},
+                           grads=grads_of(det), ms=[],
+                           params={n: p.detach().float().cpu() for n, p in det.named_parameters()})
+        steps[label] = (functools.partial(ttrain.train_step, det, opt, mesh=m), b, det)
+    for _ in range(20):  # in turn, so that the host's drift falls on both alike
+        for label, (step, b, _) in steps.items():
+            runs[label]["ms"] += timed_steps(step, [b])[1]
+    for run in runs.values():
+        run["ms"] = float(np.median(run["ms"][2:]))
+    det, group = steps["sharded"][2], mesh.get_group("data")
+    ar = cuda_ms(lambda: ttrain.allreduce_grads(det, group), 10)
+    del steps, det
+    torch.backends.cudnn.deterministic = deterministic
+    worst = {k: compare_grads(f"sharded step {k}", runs["sharded"][k], runs["plain"][k], 1e-6)
+             for k in ("grads", "params")}
+    for k, v in runs["plain"]["terms"].items():
+        assert abs(runs["sharded"]["terms"][k] - v) <= 1e-6 * max(abs(v), 1e-12), \
+            f"sharded step: {k} {runs['sharded']['terms'][k]} against {v}"
+    n_params = sum(p.numel() for p in runs["plain"]["params"].values())
+    log(f"sharded train step (one rank, NCCL): loss {runs['sharded']['terms']['loss']:.6f} == "
+        f"{runs['plain']['terms']['loss']:.6f}; gradients within {worst['grads']:.1e} and "
+        f"parameters within {worst['params']:.1e} of their largest (bound 1e-6); "
+        f"{runs['sharded']['ms']:.2f} ms a step against {runs['plain']['ms']:.2f} without the "
+        f"mesh (medians of steps 4-21, the two taken in turn, CUDA events); the all-reduce of "
+        f"the {n_params} float32 gradients alone {ar:.3f} ms (one call on their flat buffer; "
+        f"scripts/sharded_step_probe.py splits it)")
+    return runs["sharded"]["ms"] - runs["plain"]["ms"], ar
+
+
+def multihost_sweep_case(dev, kernels, ctx):
+    """(c) ``pipeline --multihost --engine fused`` over phase 10's videos from
+    its checkpoints (frames in memory): each final.json and tubelets.json
+    byte-equal to direct pipeline calls at the tool's config (phase 10's
+    ``direct_protos``); ``allreduce_metrics`` returns its input."""
+    import os
+    import tempfile
+
+    from vdetlib_tpu_torch.cli import pipeline_tool
+    from vdetlib_tpu_torch.dist.multihost import allreduce_metrics
+    from vdetlib_tpu_torch.pipeline.fused import make_fused_pipeline
+    from vdetlib_tpu_torch.pipeline.fused_runner import fused_config_from_pipeline
+
+    entries, ckpt = ctx["entries"], ctx["checkpoints"]
+    names = [e[0]["video"] for e in entries]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        frames = serve_queue(entries, data)
+        argv = [data, work, "--model", "base", "--num_classes", str(C), "--image_hw", str(H),
+                str(W), "--max_rois", str(R), "--batch_size", str(B), "--max_tracks", str(A),
+                "--anchor_thresh", repr(ctx["anchor_thresh"]), "--engine", "fused",
+                "--detector_weights", ckpt["detector"], "--tracker_weights", ckpt["tracker"],
+                "--multihost"]
+        torch.cuda.synchronize()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        assert pipeline_tool.main(argv, frames=frames) == 0, "pipeline --multihost failed"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels, "pipeline --multihost (phase 16)",
+                               ("flow_level", "nms_grouped", "track_scan"))
+        cfg = pipeline_tool.pipeline_config(pipeline_tool.parse_args(argv))
+        pipe = make_fused_pipeline(ctx["models"].detector, ctx["models"].tracker,
+                                   cfg.tracker_cfg, fused_config_from_pipeline(cfg))
+        videos = [slice_inputs(T, seed) for seed, T in enumerate(VIDEO_LENGTHS)]
+        direct_protos(pipe, dev, videos, names, cfg.link.min_score, os.path.join(tmp, "direct"))
+        for name in names:
+            for f in ("final.json", "tubelets.json"):
+                with open(os.path.join(work, name, f), "rb") as a, \
+                        open(os.path.join(tmp, "direct", name, f), "rb") as b:
+                    assert a.read() == b.read(), f"pipeline --multihost {name}/{f} differs"
+    metrics = {"videos": float(len(names)), "frames": float(sum(VIDEO_LENGTHS))}
+    assert allreduce_metrics(metrics) == metrics
+    log(f"pipeline --multihost --engine fused (one rank): {len(names)} videos in {wall:.3f} s "
+        f"({sum(VIDEO_LENGTHS) / wall:.2f} frames/s, the tool's 100 seq-NMS paths), final.json "
+        f"and tubelets.json == direct pipeline calls at the tool's config, byte for byte; "
+        f"allreduce_metrics returned its input")
+    return launches
+
+
+def mfu_case(card, slice_cfg, walls, fps):
+    """(d) Phase 5's MFU: the analytic FLOPs of each call (the frames it
+    processes, ``t_valid``, not its padded bucket) over its wall × the bf16
+    tensor-core peak."""
+    from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
+    from vdetlib_tpu_torch.utils import flops
+
+    det_cfg, trk_cfg = detector_preset("base", num_classes=C), TrackerConfig()
+    comps = [flops.fused_dispatch_flops(det_cfg, trk_cfg, slice_cfg, T, R)
+             for T in VIDEO_LENGTHS]
+    per_call = [flops.total_flops(c) for c in comps]
+    mfus = [flops.mfu(f, w) for f, w in zip(per_call, walls)]
+    share = sum(x.flops for x in comps[0] if x.unit == flops.MATMUL) / per_call[0]
+    backbone = comps[0][0].flops / per_call[0]
+    log(f"slice MFU on {card}: median {100 * float(np.median(mfus)):.4f}% of the "
+        f"{flops.PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 peak (per video "
+        f"{', '.join(f'{100 * m:.4f}%' for m in mfus)}; "
+        f"{per_call[0] / VIDEO_LENGTHS[0] / 1e9:.2f} GFLOP a frame, {per_call[0]:.4g} for "
+        f"{VIDEO_LENGTHS[0]} frames, backbone {100 * backbone:.1f}%, matmul work "
+        f"{100 * share:.1f}%), beside phase 5's {fps:.2f} frames/s")
+    return float(np.median(mfus))
+
+
+def trace_case(dev, slice_cfg):
+    """(e) ``profiling.device_trace`` around one fused call of phase 5."""
+    import os
+    import tempfile
+
+    from vdetlib_tpu_torch.pipeline.fused import make_fused_pipeline
+    from vdetlib_tpu_torch.utils import profiling
+
+    pipe = make_fused_pipeline(*base_models(dev), slice_cfg)
+    frames, rois, t_valid, roi_mask, _ = slice_inputs(VIDEO_LENGTHS[0], 0)
+    args = [torch.from_numpy(a).to(dev) for a in (frames, rois, roi_mask)]
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp):
+            pipe(args[0], args[1], t_valid, args[2])
+        path = os.path.join(tmp, profiling.TRACE_FILE)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    names = {e.get("name") for e in events}
+    assert "fused.seq_nms" in names, "the trace names no fused.seq_nms span"
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    log(f"device_trace: {size} bytes, {len(events)} events ({n_kernels} device kernels), spans "
+        f"{sorted(n for n in names if n and n.startswith('fused.'))}")
+
+
+def native_nms_case():
+    """(f) ``frame_nms --backend host`` at 512 boxes: the native library's keep
+    sets against the numpy greedy's."""
+    import vdetlib_tpu_torch.video.frame_nms as fnms
+    from vdetlib_tpu_torch.kernels.nms import nms_host, nms_host_plain
+
+    vid, det = frame_nms_protos(NMS_FRAMES, 512, seed=512)
+    t0 = time.perf_counter()
+    got = fnms.frame_nms(vid, det, thresh=0.3, backend="host")
+    t1 = time.perf_counter()
+    fnms.nms_host = nms_host_plain
+    try:
+        want = fnms.frame_nms(vid, det, thresh=0.3, backend="host")
+    finally:
+        fnms.nms_host = nms_host
+    t2 = time.perf_counter()
+    assert 0 < len(got["detections"]) < len(det["detections"])
+    assert got == want, "frame_nms host: the native keep sets differ from the numpy greedy's"
+    log(f"frame_nms --backend host at <= 512 dets/frame ({len(det['detections'])} in, "
+        f"{len(got['detections'])} out): native (csrc/nms_host.cpp) == numpy greedy; native "
+        f"{(t1 - t0) * 1e3:.1f} ms, numpy {(t2 - t1) * 1e3:.1f} ms wall (PERF.md section 5: "
+        f"389.2-1186.2 ms for the numpy host backend, PRs 2-11)")
+    return (t1 - t0) * 1e3
+
+
+def phase_multihost(dev, kernels, card, slice_cfg, slice_walls, slice_fps, sweep_ctx):
+    """Phase 16: data parallelism on a one-rank NCCL group, the MFU line, a
+    trace and the native host NMS; returns A's, B's and F's launches."""
+    import os
+
+    import torch.distributed as dist
+
+    mesh = one_rank_group()
+    try:
+        sharded, ratio = sharded_case(dev, kernels, mesh, slice_cfg)
+        torch.cuda.synchronize()
+        step_added_ms, allreduce_ms = sharded_train_case(dev, mesh)
+        torch.cuda.synchronize()
+        sweep = multihost_sweep_case(dev, kernels, sweep_ctx)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+            os.environ.pop(k, None)
+    mfu = mfu_case(card, slice_cfg, slice_walls, slice_fps)
+    trace_case(dev, slice_cfg)
+    torch.cuda.synchronize()
+    native_ms = native_nms_case()
+    return dict(launches={"sharded": sharded, "multihost_sweep": sweep}, sharded_ratio=ratio,
+                step_added_ms=step_added_ms, allreduce_ms=allreduce_ms, mfu=mfu,
+                native_ms=native_ms)
+
+
 def rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts):
     """Ranks kernels B–E by their device loss over phases 5–8: launches ×
     (device ms − bound ms), B at its fused shape for the slice's launches and
@@ -3577,12 +3884,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     build.build_all()
-    for name in build.KERNELS:
+    for name in (*build.KERNELS, *build.HOST_LIBS):
         build.load(name)
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"build: {len(build.KERNELS)} kernels in parallel, {time.perf_counter() - t0:.2f} s")
+    log(f"build: {len(build.KERNELS)} kernels and {len(build.HOST_LIBS)} host library in "
+        f"parallel, {time.perf_counter() - t0:.2f} s")
 
     records = phase_kernels(dev)
     torch.cuda.synchronize()
@@ -3613,7 +3921,7 @@ def main(argv=None) -> int:
     ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")  # phases 10 and 15
     _, sweep_ctx = phase_sweep(dev, kernels, slice_ctx, fps, card, ckpt_dir.name)
     torch.cuda.synchronize()
-    slice_cfg, stream_opts = slice_ctx["cfg"], stream_ctx["opts"]
+    slice_cfg, stream_opts, slice_walls = slice_ctx["cfg"], stream_ctx["opts"], slice_ctx["walls"]
     del stream_models, stream_ctx, slice_ctx
     chain_counts = phase_staged_chain(dev, kernels, staged_ctx, records["flow_level"])
     torch.cuda.synchronize()
@@ -3631,8 +3939,12 @@ def main(argv=None) -> int:
     t15 = time.perf_counter()
     served = phase_serve(dev, kernels, sweep_ctx, card)
     torch.cuda.synchronize()
-    ckpt_dir.cleanup()
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    multihost = phase_multihost(dev, kernels, card, slice_cfg, slice_walls, fps, sweep_ctx)
+    torch.cuda.synchronize()
+    ckpt_dir.cleanup()
+    log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
                 "nms_batched": stream_counts, "nms_sorted": nms_counts,
@@ -3647,6 +3959,9 @@ def main(argv=None) -> int:
     records["nms_batched"]["launches_train"] = training["launches"]  # phase 14's eval
     for name in ("flow_level", "nms_grouped", "track_scan"):  # phase 15, by engine
         records[name]["launches_serve"] = {e: n[name] for e, n in served["launches"].items()}
+        # phase 16: the sharded pipeline and pipeline --multihost
+        records[name]["launches_multihost"] = {
+            k: n[name] for k, n in multihost["launches"].items()}
     rank_by_device_loss(records, slice_counts, stream_counts, nms_counts, staged_counts)
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

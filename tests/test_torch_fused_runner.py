@@ -31,7 +31,8 @@ output boxes scaled back up to native pixels).
   byte, and the printed mAP is ``vid_map`` of them; with detection
   snapping, EMA templates, tubelet boxes or the "accurate" flow (either
   engine) its final protos stay within the JAX bounds above against the
-  JAX tool's; ``--multihost`` (not ported yet) raises.
+  JAX tool's, as with ``--multihost`` in one process; a video without
+  proposals raises JAX's error.
 """
 
 import contextlib
@@ -348,16 +349,16 @@ def test_pipeline_config_matches_jax_tool(dataset, cli_run, tmp_path, monkeypatc
     assert got == want
 
 
-@pytest.mark.parametrize("flags, error", [
-    (["--engine", "fused", "--multihost"], "Queue 1, item 3"),
-], ids=["multihost"])
-def test_pipeline_tool_refuses_what_is_not_ported(dataset, tmp_path, flags, error):
-    root, _ = dataset
-    with pytest.raises(NotImplementedError, match=error):
-        pipeline_tool.main([str(root), str(tmp_path / "w"), *CLI_FLAGS, "--device", "cpu",
-                            *flags])
-    assert not any(p.name.endswith(".json") and p.name != "pipeline_config.json"
-                   for p in tmp_path.rglob("*"))
+def test_fused_engine_without_proposals_names_the_staged_engine(models, tcfg, dataset):
+    """A video without a box_proto: the ValueError of JAX's
+    ``FusedEngine.load`` (``vdetlib_tpu/pipeline/fused_runner.py``), word
+    for word."""
+    _, inputs = dataset
+    vid = inputs[0][0]
+    with pytest.raises(ValueError) as got:
+        tfr.FusedEngine(models, tcfg).load(vid, None)
+    assert str(got.value) == (f"{vid['video']}: fused engine needs proposals (box_proto); "
+                              f"run the staged engine for proposal-free flows")
 
 
 @pytest.mark.parametrize("flags", [
@@ -367,8 +368,11 @@ def test_pipeline_tool_refuses_what_is_not_ported(dataset, tmp_path, flags, erro
     ["--snap_weight", "0.5"],
     ["--template_eta", "0.1"],
     ["--flow_preset", "accurate"],
+    # one process without torch's or JAX's multi-process environment: each
+    # tool sweeps every video (the two-process run: test_torch_multihost.py)
+    ["--engine", "fused", "--multihost"],
 ], ids=["snap_weight", "tubelet_boxes", "template_eta", "staged_snap_weight",
-        "staged_template_eta", "staged_flow_preset_accurate"])
+        "staged_template_eta", "staged_flow_preset_accurate", "multihost"])
 def test_pipeline_tool_options_match_jax_tool(nets, dataset, tmp_path, monkeypatch, flags):
     """The options the port's tool once refused, through both tools with the
     same float32 weights: each video's ``final.json`` within the bounds of

@@ -59,6 +59,7 @@ def test_slice_modules_listed():
         "cli.serve", "evaluation.submission", "cli.eval_vid", "cli.write_submission",
         "cli.calibrate", "cli.gen_vid_proto", "video.proposal", "cli.gen_box_proto",
         "data.vid_dataset", "cli.import_vid", "cli.gen_synth", "utils.visual", "cli.show",
+        "utils.flops", "utils.profiling", "dist.multihost",
     ):
         assert "vdetlib_tpu_torch." + m in MODULES, m
 
@@ -77,6 +78,7 @@ def test_imports_with_jax_blocked():
 ENTRY_POINTS = {
     "staged_runner": ["vdetlib_tpu_torch.pipeline.runner"],
     "pipeline_tool": ["vdetlib_tpu_torch.cli.pipeline_tool", "vdetlib_tpu_torch.dist.sharding",
+                      "vdetlib_tpu_torch.dist.multihost",
                       "vdetlib_tpu_torch.nn.presets", "vdetlib_tpu_torch.pipeline.checkpoint",
                       "vdetlib_tpu_torch.pipeline.fused_runner", "vdetlib_tpu_torch.weights",
                       "vdetlib_tpu_torch.evaluation.vid_map",
@@ -102,6 +104,50 @@ def test_entry_point_imports_with_jax_blocked(name):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == f"ok {len(ENTRY_POINTS[name])}"
+
+
+# the JAX packages whose __init__ exports names
+PACKAGES = ("protos", "geometry", "kernels", "evaluation", "nn", "dist")
+
+
+def _exported(init_path: pathlib.Path) -> set:
+    """The names an ``__init__.py`` imports from its modules (its exports)."""
+    import ast
+
+    tree = ast.parse(init_path.read_text())
+    return {a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            and node.module and node.module.startswith("vdetlib_tpu")
+            for a in node.names}
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_package_exports_every_name_of_the_jax_package(package):
+    """Each package ``__init__`` of the port exports every name its JAX
+    counterpart exports; importing them builds no kernel (``_build`` gains
+    nothing)."""
+    import importlib
+
+    want = _exported(PKG.parent / "vdetlib_tpu" / package / "__init__.py")
+    assert want, package
+    missing = want - _exported(PKG / package / "__init__.py")
+    assert not missing, (package, sorted(missing))
+    mod = importlib.import_module(f"vdetlib_tpu_torch.{package}")
+    assert all(callable(getattr(mod, n)) or isinstance(getattr(mod, n), float)
+               for n in want), package
+
+
+def test_reexports_build_nothing():
+    code = ("import pathlib, vdetlib_tpu_torch.kernels.build as b; "
+            "before = set(b.BUILD_DIR.glob('*')) if b.BUILD_DIR.exists() else set(); "
+            "import vdetlib_tpu_torch.kernels, vdetlib_tpu_torch.protos, "
+            "vdetlib_tpu_torch.evaluation, vdetlib_tpu_torch.nn, vdetlib_tpu_torch.dist, "
+            "vdetlib_tpu_torch.geometry; "
+            "after = set(b.BUILD_DIR.glob('*')) if b.BUILD_DIR.exists() else set(); "
+            "assert after == before, after - before; "
+            "assert not b._load.cache_info().currsize; print('ok')")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
 
 
 def test_dispatcher_lists_the_jax_tools():

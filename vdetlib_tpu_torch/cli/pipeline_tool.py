@@ -15,8 +15,13 @@ they are random, drawn from ``--seed``.
 
 Both engines run every tracker, flow and rescoring option of the JAX tool:
 ``--snap_weight``, ``--template_eta``, ``--track_scales``, ``--flow_preset
-accurate`` and ``--tubelet_boxes``. Not ported yet: ``--multihost``
-(ROADMAP.md Queue 1, item 3) raises before anything loads.
+accurate`` and ``--tubelet_boxes``. ``--multihost`` runs one process per
+shard: each starts the process group from torch's environment
+(``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; NCCL on the card,
+gloo with ``--device cpu``) and sweeps its round-robin share of the videos
+into the shared workdir; with ``--eval`` every process meets the others at a
+barrier once its shard is written, then rank 0 evaluates over every shard's
+``final.json`` and the other ranks return 0.
 
 Dataset layout (as produced by ``gen_synth``): ``<data>/NAME.vid.json`` +
 ``NAME.box.json`` (+ optional ``NAME.annot.json`` for --eval). The frames
@@ -30,7 +35,7 @@ import glob
 import os
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("data_dir")
     p.add_argument("workdir")
@@ -81,7 +86,8 @@ def main(argv=None) -> int:
                    help="tubelet statistic = mean of top this-fraction scores")
     p.add_argument("--shard", type=int, nargs=2, default=[0, 1], metavar=("I", "N"))
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host sweep (not ported yet)")
+                   help="one process per shard over torch.distributed (MASTER_ADDR, "
+                        "MASTER_PORT, WORLD_SIZE, RANK); rank 0 evaluates every shard")
     p.add_argument("--engine", default="staged", choices=["staged", "fused"],
                    help="staged = JSON proto at every stage boundary (per-stage resume); "
                         "fused = the fused pipeline per video, same final protos")
@@ -102,49 +108,27 @@ def main(argv=None) -> int:
                    help="rank calibration: (1-blend)*quantile + blend*raw")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device to run on")
-    args = p.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1, item 3)")
+    return p.parse_args(argv)
 
-    import torch
 
-    from vdetlib_tpu_torch.dist.sharding import shard_videos
-    from vdetlib_tpu_torch.nn.presets import detector_preset
+def pipeline_config(args):
+    """The ``PipelineConfig`` the tool's flags give."""
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig
-    from vdetlib_tpu_torch.pipeline.checkpoint import load_params
-    from vdetlib_tpu_torch.pipeline.fused_runner import run_videos_fused
-    from vdetlib_tpu_torch.pipeline.runner import Models, PipelineConfig, run_videos
-    from vdetlib_tpu_torch.protos import proto_load
-    from vdetlib_tpu_torch.utils.log import get_logger
+    from vdetlib_tpu_torch.pipeline.runner import PipelineConfig
     from vdetlib_tpu_torch.video.detect import DetectOptions
     from vdetlib_tpu_torch.video.link import LinkOptions
     from vdetlib_tpu_torch.video.mgp import MGPOptions
     from vdetlib_tpu_torch.video.rescore import RescoreOptions
     from vdetlib_tpu_torch.video.track import TrackOptions
-    from vdetlib_tpu_torch.weights import init_detector, init_tracker
-
-    vid_files = sorted(glob.glob(os.path.join(args.data_dir, "*.vid.json")))
-    vid_files = shard_videos(vid_files, args.shard[0], args.shard[1])
-    if not vid_files:
-        raise SystemExit(f"no *.vid.json under {args.data_dir} for this shard")
 
     hw = tuple(args.image_hw)
-    det_model = init_detector(detector_preset(args.model, num_classes=args.num_classes),
-                              torch.Generator().manual_seed(args.seed), device=args.device)
-    if args.detector_weights:
-        load_params(args.detector_weights, det_model)
     trk_cfg = TrackerConfig(num_scales=args.track_scales, template_eta=args.template_eta)
-    trk_model = init_tracker(trk_cfg, torch.Generator().manual_seed(args.seed + 1),
-                             device=args.device)
-    if args.tracker_weights:
-        load_params(args.tracker_weights, trk_model)
-
     perturb_opts = None
     if "perturb" in args.stages.split(","):
         from vdetlib_tpu_torch.video.perturb import PerturbOptions
 
         perturb_opts = PerturbOptions(num_perturb=args.perturb_n)
-    cfg = PipelineConfig(
+    return PipelineConfig(
         detect=DetectOptions(batch_size=args.batch_size, max_rois=args.max_rois, image_hw=hw,
                              score_thresh=0.05),
         mgp=MGPOptions(window=args.mgp_window, num_classes=args.num_classes, image_hw=hw,
@@ -163,12 +147,52 @@ def main(argv=None) -> int:
         perturb=perturb_opts,
         stages=tuple(args.stages.split(",")),
     )
+
+
+def main(argv=None, frames=None) -> int:
+    """The tool; ``frames`` optionally maps a video's name to its uint8 frames
+    at ``--image_hw`` (the sweeps' in-memory frames: no JPEG decode)."""
+    args = parse_args(argv)
+
+    import torch
+
+    from vdetlib_tpu_torch.dist.multihost import init_multihost, process_video_shard
+    from vdetlib_tpu_torch.dist.sharding import shard_videos
+    from vdetlib_tpu_torch.nn.presets import detector_preset
+    from vdetlib_tpu_torch.pipeline.checkpoint import load_params
+    from vdetlib_tpu_torch.pipeline.fused_runner import run_videos_fused
+    from vdetlib_tpu_torch.pipeline.runner import Models, run_videos
+    from vdetlib_tpu_torch.protos import proto_load
+    from vdetlib_tpu_torch.utils.log import get_logger
+    from vdetlib_tpu_torch.weights import init_detector, init_tracker
+
+    vid_files = sorted(glob.glob(os.path.join(args.data_dir, "*.vid.json")))
+    if args.multihost:
+        init_multihost(device=args.device)
+        vid_files = process_video_shard(vid_files)
+    else:
+        vid_files = shard_videos(vid_files, args.shard[0], args.shard[1])
+    if not vid_files:
+        raise SystemExit(f"no *.vid.json under {args.data_dir} for this shard")
+
+    cfg = pipeline_config(args)
+    det_model = init_detector(detector_preset(args.model, num_classes=args.num_classes),
+                              torch.Generator().manual_seed(args.seed), device=args.device)
+    if args.detector_weights:
+        load_params(args.detector_weights, det_model)
+    trk_model = init_tracker(cfg.tracker_cfg, torch.Generator().manual_seed(args.seed + 1),
+                             device=args.device)
+    if args.tracker_weights:
+        load_params(args.tracker_weights, trk_model)
     models = Models(det_model, trk_model)
 
+    frames = frames or {}
     inputs = []
     for vf in vid_files:
         bf = vf.replace(".vid.json", ".box.json")
-        inputs.append((proto_load(vf), proto_load(bf) if os.path.exists(bf) else None))
+        vid = proto_load(vf)
+        entry = (vid, proto_load(bf) if os.path.exists(bf) else None)
+        inputs.append(entry + ((frames[vid["video"]],) if vid["video"] in frames else ()))
     if args.engine == "fused":
         results = run_videos_fused(args.workdir, inputs, models, cfg,
                                    group_size=args.fused_group, keep_going=args.keep_going)
@@ -184,11 +208,26 @@ def main(argv=None) -> int:
         from vdetlib_tpu_torch.evaluation.calibration import rank_normalize
         from vdetlib_tpu_torch.evaluation.vid_map import vid_map
 
+        eval_pairs = [(vf, r["result"]) for vf, r in zip(vid_files, results)]
+        if args.multihost:
+            import torch.distributed as dist
+
+            from vdetlib_tpu_torch.dist.multihost import allreduce_metrics
+
+            # barrier: every process has written its shard's protos
+            allreduce_metrics({"shards_done": 1.0})
+            if dist.is_initialized() and dist.get_rank() != 0:
+                return 0
+            # rank 0 evaluates over every shard's outputs (shared workdir)
+            eval_pairs = []
+            for vf in sorted(glob.glob(os.path.join(args.data_dir, "*.vid.json"))):
+                video = os.path.basename(vf)[: -len(".vid.json")]
+                eval_pairs.append((vf, os.path.join(args.workdir, video, "final.json")))
         pairs = []
-        for vf, r in zip(vid_files, results):
+        for vf, rf in eval_pairs:
             af = vf.replace(".vid.json", ".annot.json")
-            if os.path.exists(af) and os.path.exists(r["result"]):  # absent = failed video
-                dp = proto_load(r["result"])
+            if os.path.exists(af) and os.path.exists(rf):  # absent = failed video
+                dp = proto_load(rf)
                 if args.calibrate == "rank":
                     dp = rank_normalize(dp, blend=args.calibrate_blend)
                 pairs.append((dp, proto_load(af)))

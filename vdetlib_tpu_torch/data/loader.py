@@ -1,5 +1,6 @@
 """Host-side frame loading — the port's copy of ``vdetlib_tpu/data/loader.py``'s
-``load_frame`` and ``FrameLoader`` (with ``iter_batches``): threaded JPEG decode (BGR uint8, the
+``load_frame``, ``FrameLoader`` (with ``iter_batches``) and
+``batch_frames_from_array``: threaded JPEG decode (BGR uint8, the
 reference's ``cv2.imread`` convention) with an optional resize to the
 detector's static shape, or frames served from memory. ``cv2`` is imported only when an image is read, so
 the package imports on a machine without it.
@@ -87,3 +88,16 @@ class FrameLoader:
 
     def close(self):
         self._pool.shutdown(wait=False)
+
+
+def batch_frames_from_array(frames: np.ndarray, batch_size: int
+                            ) -> Iterator[tuple[list[int], np.ndarray]]:
+    """Batch an in-memory (T, H, W, 3) array; pads the tail by repetition."""
+    T = frames.shape[0]
+    for start in range(0, T, batch_size):
+        idx = list(range(start, min(start + batch_size, T)))
+        batch = frames[idx]
+        if len(idx) < batch_size:
+            pad = np.repeat(batch[-1:], batch_size - len(idx), axis=0)
+            batch = np.concatenate([batch, pad], axis=0)
+        yield idx, batch

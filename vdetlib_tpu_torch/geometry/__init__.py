@@ -5,6 +5,8 @@ from vdetlib_tpu_torch.geometry.boxes import (  # noqa: F401
     box_center,
     box_wh,
     clip_boxes,
+    elementwise_iou,
+    encode_deltas,
     pairwise_iou,
     shift_boxes,
 )

@@ -55,6 +55,19 @@ def pairwise_iou(boxes_a, boxes_b, offset: float = LEGACY_OFFSET):
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def elementwise_iou(boxes_a, boxes_b, offset: float = LEGACY_OFFSET):
+    """IoU between aligned (..., 4) box tensors → (...)."""
+    ix1 = torch.maximum(boxes_a[..., 0], boxes_b[..., 0])
+    iy1 = torch.maximum(boxes_a[..., 1], boxes_b[..., 1])
+    ix2 = torch.minimum(boxes_a[..., 2], boxes_b[..., 2])
+    iy2 = torch.minimum(boxes_a[..., 3], boxes_b[..., 3])
+    iw = torch.clamp(ix2 - ix1 + offset, min=0.0)
+    ih = torch.clamp(iy2 - iy1 + offset, min=0.0)
+    inter = iw * ih
+    union = box_area(boxes_a, offset) + box_area(boxes_b, offset) - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
 def clip_boxes(boxes, height, width, offset: float = LEGACY_OFFSET):
     """Clip (..., 4) boxes to image bounds [0, W-offset] × [0, H-offset]."""
     x1 = torch.clamp(boxes[..., 0], 0.0, width - offset)

@@ -1,5 +1,8 @@
 """Build the hand-written CUDA kernels of ``csrc/`` at first use; load them with ctypes.
 
+The host library ``csrc/nms_host.cpp`` (the frame-NMS tool's greedy NMS)
+is built the same way with ``g++``.
+
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 with ``nvcc`` into ``_build/lib<name>-<hash>.so`` (seconds, against minutes
 for a source that includes PyTorch's headers). The hash covers the source,
@@ -91,8 +94,18 @@ KERNELS = {
     ),
 }
 
-# one lock a kernel, reentrant: ``load`` holds it around ``build``
-_LOCKS = {name: threading.RLock() for name in KERNELS}
+# host libraries (plain C++, built with g++), in KERNELS' layout. No
+# -march=native (the JAX package's Makefile has it): a library in _build/
+# may be reused on another machine; ISO C++ keeps FMA contraction off either
+# way, so the arithmetic is the same.
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+HOST_LIBS = {
+    # nms(dets (n, 5) float32, n, thresh, offset, keep_out (n,) int32) -> kept
+    "nms_host": (("vdet_nms", (_P, _I, _F, _F, _P)), ()),
+}
+
+# one lock a library, reentrant: ``load`` holds it around ``build``
+_LOCKS = {name: threading.RLock() for name in (*KERNELS, *HOST_LIBS)}
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
@@ -111,6 +124,23 @@ def nvcc_path() -> str:
     return found
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` on PATH."""
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise KernelError("g++ not found (set CXX): the host NMS library is built at first use")
+    return found
+
+
+def _spec(name: str):
+    """(source, (symbol, argtypes), compiler flags) of a kernel or host library."""
+    if name in HOST_LIBS:
+        entry, extra = HOST_LIBS[name]
+        return CSRC_DIR / f"{name}.cpp", entry, HOST_FLAGS + extra
+    entry, extra = KERNELS[name]
+    return CSRC_DIR / f"{name}.cu", entry, NVCC_FLAGS + extra
+
+
 def _sources(path: Path, seen=None) -> list[Path]:
     """``path`` and the ``csrc/`` headers it includes, transitively."""
     seen = [] if seen is None else seen
@@ -125,39 +155,44 @@ def _sources(path: Path, seen=None) -> list[Path]:
 
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s shared library lives for the current sources."""
-    (_, extra) = KERNELS[name]
+    source, _, flags = _spec(name)
     h = hashlib.sha256()
-    for src in _sources(CSRC_DIR / f"{name}.cu"):
+    for src in _sources(source):
         h.update(src.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS + extra).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source exists."""
+    """Compile ``csrc/<name>.cu`` (``.cpp`` for a host library) unless a
+    library for this exact source exists."""
     so = library_path(name)
     with _LOCKS[name]:
         if so.is_file():
             return so
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        (_, extra) = KERNELS[name]
+        source, _, flags = _spec(name)
+        compiler = cxx_path() if name in HOST_LIBS else nvcc_path()
         tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [compiler, *flags, "-o", str(tmp), str(source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise KernelError(f"nvcc failed on csrc/{name}.cu:\n{res.stdout}\n{res.stderr}")
+            raise KernelError(f"{Path(compiler).name} failed on csrc/{source.name}:\n"
+                              f"{res.stdout}\n{res.stderr}")
         so.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
         return so
 
 
 def build_all() -> dict[str, Path]:
-    """Build every kernel at once: one ``nvcc`` per source, all started together."""
+    """Build every kernel and host library at once: one compiler per source,
+    all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+    names = (*KERNELS, *HOST_LIBS)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str):
@@ -168,7 +203,7 @@ def load(name: str):
 
 @functools.lru_cache(maxsize=None)
 def _load(name: str):
-    ((symbol, argtypes), _) = KERNELS[name]
+    _, (symbol, argtypes), _ = _spec(name)
     so = build(name)
     try:
         lib = ctypes.CDLL(str(so))

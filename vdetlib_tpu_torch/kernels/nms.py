@@ -6,7 +6,8 @@ when IoU with any kept box is strictly greater than ``thresh``. The plain
 fixpoint and the CUDA kernel B live in :mod:`.nms_grouped`, kernel C in
 :mod:`.nms_batched`, kernel D in :mod:`.nms_sorted`. :func:`nms_xla` and
 :func:`nms_fixpoint` are the JAX package's XLA forms (no Pallas kernel
-computes them there), in plain PyTorch.
+computes them there), in plain PyTorch. :func:`nms_host` runs the native
+host library ``csrc/nms_host.cpp``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from vdetlib_tpu_torch.geometry.boxes import LEGACY_OFFSET, pairwise_iou
+from vdetlib_tpu_torch.kernels import build
 from vdetlib_tpu_torch.kernels.nms_batched import MAX_SLOTS as BATCHED_MAX
 from vdetlib_tpu_torch.kernels.nms_batched import nms_batched_kernel
 from vdetlib_tpu_torch.kernels.nms_grouped import MAX_SLOTS as GROUPED_MAX
@@ -23,7 +25,8 @@ from vdetlib_tpu_torch.kernels.nms_sorted import MAX_SLOTS as SORTED_MAX
 from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel, visit_order
 
 __all__ = ["batched_nms", "batched_route", "fixpoint_passes", "grouped_route", "nms_fixpoint",
-           "nms_grouped", "nms_host", "nms_unsorted_fixpoint", "nms_xla", "sort_by_score"]
+           "nms_grouped", "nms_host", "nms_host_plain", "nms_unsorted_fixpoint", "nms_xla",
+           "sort_by_score"]
 
 # the Jacobi steps between two convergence checks of nms_fixpoint (each
 # check reads a flag back to the host)
@@ -185,12 +188,21 @@ def nms_grouped(boxes, scores, valid, groups, thresh: float, offset: float = LEG
 
 def nms_host(dets, thresh: float, offset: float = LEGACY_OFFSET) -> list[int]:
     """Host-side greedy NMS on dets[N, 5] = (x1, y1, x2, y2, score) → ranked
-    keep indices (original numbering), in numpy.
+    keep indices (original numbering), in the native library
+    ``csrc/nms_host.cpp`` (the JAX package's ``native/nms.cpp``), built with
+    ``g++`` at first use. A failed build or load raises :class:`KernelError`;
+    :func:`nms_host_plain` is the numpy version of the same greedy."""
+    dets = np.ascontiguousarray(dets, dtype=np.float32).reshape(-1, 5)
+    n = dets.shape[0]
+    if n == 0:
+        return []
+    keep = np.empty(n, np.int32)
+    n_keep = build.load("nms_host")(dets.ctypes.data, n, thresh, offset, keep.ctypes.data)
+    return keep[:n_keep].tolist()
 
-    The JAX package's ``nms_host`` calls its native C++ library when built,
-    else this same numpy greedy (``vdetlib_tpu/native::_nms_numpy``); the
-    port does not build that library and keeps the numpy form.
-    """
+
+def nms_host_plain(dets, thresh: float, offset: float = LEGACY_OFFSET) -> list[int]:
+    """:func:`nms_host` in numpy (``vdetlib_tpu/native::_nms_numpy``)."""
     dets = np.ascontiguousarray(dets, dtype=np.float32).reshape(-1, 5)
     if dets.shape[0] == 0:
         return []

@@ -17,19 +17,21 @@ learning rate of update ``k`` read from the schedule at ``k``.
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vdetlib_tpu_torch.geometry.boxes import encode_deltas, pairwise_iou
 from vdetlib_tpu_torch.nn.detector import preprocess_images
 
 __all__ = [
-    "ClippedAdamW", "TrainState", "assign_targets", "augment_photometric", "detector_loss",
-    "init_train_state", "loss_and_terms", "lr_at", "make_optimizer", "make_training_batch",
-    "smooth_l1", "train_step",
+    "ClippedAdamW", "TrainState", "allreduce_grads", "assign_targets", "augment_photometric",
+    "detector_loss", "flat_grads", "init_train_state", "loss_and_terms", "lr_at",
+    "make_optimizer", "make_training_batch", "smooth_l1", "train_step",
 ]
 
 
@@ -73,26 +75,36 @@ def smooth_l1(x, beta: float = 1.0):
     return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
 
 
-def detector_loss(scores, deltas, labels, bbox_targets, bbox_weight: float = 1.0):
+def _count(mask, group):
+    """The number of True entries, summed over ``group``'s ranks when given."""
+    n = mask.sum()
+    if group is not None:
+        dist.all_reduce(n, op=dist.ReduceOp.SUM, group=group)
+    return torch.clamp(n, min=1)
+
+
+def detector_loss(scores, deltas, labels, bbox_targets, bbox_weight: float = 1.0, group=None):
     """Fast R-CNN loss over a padded ROI batch.
 
     scores: (..., R, K); deltas: (..., R, K, 4); labels: (..., R) with -1 =
     ignore; bbox_targets: (..., R, 4). Returns (loss, {"cls_loss",
-    "reg_loss", "n_fg"}).
+    "reg_loss", "n_fg"}). With a process ``group`` the batch is this rank's
+    shard: the normalisers (valid and foreground ROIs) are summed over the
+    group first, so the ranks' losses sum to the loss of the whole batch.
     """
     labels = labels.long()
     valid = labels >= 0
     labels_c = torch.clamp(labels, min=0)
     logp = F.log_softmax(scores, dim=-1)
     cls_ll = torch.gather(logp, -1, labels_c[..., None])[..., 0]
-    n_valid = torch.clamp(valid.sum(), min=1)
+    n_valid = _count(valid, group)
     cls_loss = -torch.sum(torch.where(valid, cls_ll, torch.zeros_like(cls_ll))) / n_valid
 
     fg = labels > 0
     idx = labels_c[..., None, None].expand(labels_c.shape + (1, 4))
     picked = torch.gather(deltas, -2, idx)[..., 0, :]  # (..., R, 4)
     reg = torch.sum(smooth_l1(picked - bbox_targets), dim=-1)
-    n_fg = torch.clamp(fg.sum(), min=1)
+    n_fg = _count(fg, group)
     reg_loss = torch.sum(torch.where(fg, reg, torch.zeros_like(reg))) / n_fg
     return cls_loss + bbox_weight * reg_loss, {
         "cls_loss": cls_loss, "reg_loss": reg_loss, "n_fg": n_fg,
@@ -171,26 +183,79 @@ def init_train_state(model: torch.nn.Module, opt: torch.optim.Optimizer) -> Trai
     return TrainState(model, opt, 0)
 
 
-def loss_and_terms(model, batch):
-    """The detector's loss on one batch (on the model's device) and its terms."""
+def loss_and_terms(model, batch, group=None):
+    """The detector's loss on one batch (on the model's device) and its terms;
+    ``group``: see :func:`detector_loss`."""
     images = preprocess_images(batch["images_u8"], model.config)
     scores, deltas = model(images, batch["rois"])
-    return detector_loss(scores, deltas, batch["labels"], batch["bbox_targets"])
+    return detector_loss(scores, deltas, batch["labels"], batch["bbox_targets"], group=group)
 
 
-def train_step(model, opt, batch) -> dict:
+_FLAT_GRADS = weakref.WeakKeyDictionary()  # model -> (buffer, its gradient views)
+
+
+def flat_grads(model) -> torch.Tensor:
+    """One buffer that holds every gradient of ``model``: each parameter that
+    requires a gradient gets a ``.grad`` that is a view into it (zeros where
+    it had none). Made again, with the gradients' values, whenever a
+    gradient is no longer its view (as after ``zero_grad(set_to_none=True)``).
+    Backward accumulates into the views in place, so one all-reduce of the
+    buffer sums every gradient, with no flatten and no copy-back."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    held = _FLAT_GRADS.get(model)
+    if held is None or len(held[1]) != len(params) or any(
+            p.grad is not v for p, v in zip(params, held[1])):
+        flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
+                           device=params[0].device)
+        views = [part.view_as(p) for p, part in zip(params, flat.split(
+            [p.numel() for p in params]))]
+        for p, v in zip(params, views):
+            if p.grad is not None:
+                v.copy_(p.grad)
+            p.grad = v
+        held = _FLAT_GRADS[model] = (flat, views)
+    return held[0]
+
+
+def allreduce_grads(model, group) -> None:
+    """Sum every parameter's gradient over ``group`` in place: one all-reduce
+    of :func:`flat_grads`."""
+    dist.all_reduce(flat_grads(model), op=dist.ReduceOp.SUM, group=group)
+
+
+def train_step(model, opt, batch, mesh=None) -> dict:
     """One optimizer step on the model's device.
 
     batch: images_u8 (B, H, W, 3), rois (B, R, 4), labels (B, R),
     bbox_targets (B, R, 4) (any device). Returns the loss terms as tensors
-    ("loss", "cls_loss", "reg_loss", "n_fg"), detached."""
+    ("loss", "cls_loss", "reg_loss", "n_fg"), detached.
+
+    With a ``mesh`` (``dist/sharding.py``) the step is data parallel, as
+    JAX's step on a sharded batch: ``batch`` is this rank's shard
+    (``shard_batch``), the loss divides by the counts of the whole batch,
+    the gradients are summed over the ``data`` ranks before the optimizer
+    clips and steps, so the parameters stay equal on every rank, and the
+    returned terms are the whole batch's. The gradients are then views of
+    one buffer (:func:`flat_grads`), zeroed before backward and summed in
+    one call after it."""
     dev = next(model.parameters()).device
     b = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
-    opt.zero_grad(set_to_none=True)
-    loss, aux = loss_and_terms(model, b)
+    group = None if mesh is None else mesh.get_group("data")
+    if group is None:
+        opt.zero_grad(set_to_none=True)
+    else:
+        flat_grads(model).zero_()
+    loss, aux = loss_and_terms(model, b, group=group)
     loss.backward()
+    if group is not None:
+        allreduce_grads(model, group)
     opt.step()
-    return {k: v.detach() for k, v in dict(aux, loss=loss).items()}
+    terms = dict(aux, loss=loss)
+    if group is not None:  # each rank's terms are its share of the batch's
+        parts = torch.stack([terms[k].detach() for k in ("loss", "cls_loss", "reg_loss")])
+        dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
+        terms.update(zip(("loss", "cls_loss", "reg_loss"), parts))
+    return {k: v.detach() for k, v in terms.items()}
 
 
 def augment_photometric(images: np.ndarray, rng: np.random.Generator) -> np.ndarray:

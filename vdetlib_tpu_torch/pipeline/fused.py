@@ -11,6 +11,8 @@ updates, so the host never waits on the card inside the pipeline.
 detection to the temporal stages: :meth:`FusedPipeline.detect` gives
 ``(probs, reg_boxes)`` and :meth:`FusedPipeline.temporal` takes them, so a
 test can feed the JAX detection outputs to the torch temporal stages.
+:func:`make_sharded_pipeline` splits a batch of snippets across the ranks of
+a ``torch.distributed`` mesh (``dist/sharding.py``).
 
 Each stage runs under a ``torch.profiler.record_function`` span named
 ``fused.<stage>``, so a profiler trace splits the pipeline's time by stage.
@@ -24,8 +26,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
+from vdetlib_tpu_torch.dist.sharding import data_rank_size
 from vdetlib_tpu_torch.geometry.boxes import pairwise_iou
 from vdetlib_tpu_torch.kernels.flow import flow_coord_scale, flow_video
 from vdetlib_tpu_torch.kernels.nms import nms_grouped
@@ -358,6 +362,56 @@ def make_fused_pipeline(det_model, trk_model, trk_cfg, cfg: FusedConfig) -> Fuse
     ``T`` must be a multiple of ``cfg.detect_batch`` as in the JAX package
     (see :func:`pad_snippet`); tensors stay on the device they arrive on."""
     return FusedPipeline(det_model, trk_model, trk_cfg, cfg)
+
+
+class ShardedPipeline:
+    """The fused pipeline over a batch of snippets split along the mesh's
+    ``data`` dim; see :func:`make_sharded_pipeline`."""
+
+    def __init__(self, pipe: FusedPipeline, mesh):
+        self.pipe = pipe
+        self.mesh = mesh
+
+    @torch.no_grad()
+    def __call__(self, frames, rois, t_valid=None, roi_mask=None) -> FusedOutput:
+        """frames (V, T, H, W, 3) uint8, rois (V, T, R, 4); optional t_valid
+        (V,) and roi_mask (V, T, R) → :class:`FusedOutput` with a leading V
+        on every field (``n_tracks`` (V,))."""
+        V = frames.shape[0]
+        r, d = data_rank_size(self.mesh)
+        if V % d:
+            raise ValueError(f"{V} snippets not divisible by the mesh's data size {d}")
+        n = V // d
+        outs = [
+            self.pipe(frames[v], rois[v], None if t_valid is None else t_valid[v],
+                      None if roi_mask is None else roi_mask[v])
+            for v in range(r * n, (r + 1) * n)
+        ]
+        local = [torch.stack(f) for f in zip(*outs)]
+        group = self.mesh.get_group("data")
+        fields = []
+        for x in local:
+            # gathered as uint8 where bool: not every backend takes bool
+            y = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+            parts = [torch.empty_like(y) for _ in range(d)]
+            dist.all_gather(parts, y, group=group)
+            fields.append(torch.cat(parts).to(x.dtype))
+        return FusedOutput(*fields)
+
+
+def make_sharded_pipeline(det_model, trk_model, trk_cfg, cfg: FusedConfig, mesh
+                          ) -> ShardedPipeline:
+    """Data-parallel fused pipeline: snippets split along the mesh's ``data`` dim.
+
+    Returns fn(frames (V, T, H, W, 3), rois (V, T, R, 4)) → ``FusedOutput``
+    with a leading V, on every rank; V must divide by the data size. The
+    models must hold the same weights on every rank (``dist.replicate``).
+    Each rank runs its contiguous block of snippets one after another
+    through :class:`FusedPipeline` (per-video state never crosses ranks),
+    then the V outputs are gathered onto every rank. The JAX program vmaps
+    a rank's block as one program; a rank's videos here equal single calls
+    bit for bit."""
+    return ShardedPipeline(FusedPipeline(det_model, trk_model, trk_cfg, cfg), mesh)
 
 
 def pad_snippet(frames_u8, rois, bucket: int = 32):

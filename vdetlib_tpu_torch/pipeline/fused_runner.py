@@ -149,7 +149,7 @@ class FusedEngine:
         if box_proto is None:
             raise ValueError(
                 f"{vid_proto['video']}: fused engine needs proposals (box_proto); "
-                f"the staged engine's proposal-free flows are not ported yet"
+                f"run the staged engine for proposal-free flows"
             )
         H, W = self.fcfg.image_hw
         fids = [f["frame"] for f in vid_proto["frames"]]

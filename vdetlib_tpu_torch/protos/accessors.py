@@ -1,4 +1,4 @@
-"""Accessors over protocol dicts — the port's copy of what it calls from
+"""Accessors over protocol dicts — the port's copy of
 ``vdetlib_tpu/protos/accessors.py`` (same names, same behaviour).
 
 Schemas: ``vid_proto`` {video, root_path, frames: [{frame (1-based), path}]};
@@ -30,6 +30,22 @@ def frame_path_at(vid_proto: dict, frame_id: int) -> str:
     return os.path.join(vid_proto["root_path"], fr["path"])
 
 
+def frame_path_before(vid_proto: dict, frame_id: int) -> str:
+    """Path of the closest frame with id < frame_id (or frame_id itself)."""
+    cands = [fr["frame"] for fr in vid_proto["frames"] if fr["frame"] <= frame_id]
+    if not cands:
+        raise KeyError(f"no frame at or before {frame_id}")
+    return frame_path_at(vid_proto, max(cands))
+
+
+def frame_path_after(vid_proto: dict, frame_id: int) -> str:
+    """Path of the closest frame with id > frame_id (or frame_id itself)."""
+    cands = [fr["frame"] for fr in vid_proto["frames"] if fr["frame"] >= frame_id]
+    if not cands:
+        raise KeyError(f"no frame at or after {frame_id}")
+    return frame_path_at(vid_proto, min(cands))
+
+
 def boxes_at_frame(box_proto: dict, frame_id: int) -> list[list[float]]:
     """All proposal bboxes at a frame, as [x1,y1,x2,y2] lists."""
     return [b["bbox"] for b in box_proto["boxes"] if b["frame"] == frame_id]
@@ -40,6 +56,22 @@ def dets_at_frame(det_proto: dict, frame_id: int) -> list[dict]:
     return [d for d in det_proto["detections"] if d["frame"] == frame_id]
 
 
+def det_boxes_at_frame(det_proto: dict, frame_id: int) -> list[list[float]]:
+    return [d["bbox"] for d in dets_at_frame(det_proto, frame_id)]
+
+
+def det_score(det: dict, class_index: int) -> float:
+    """Score of one class for one detection entry (0.0 when absent)."""
+    for s in det["scores"]:
+        if s["class_index"] == class_index:
+            return float(s["score"])
+    return 0.0
+
+
+def det_scores_at_frame(det_proto: dict, frame_id: int, class_index: int) -> list[float]:
+    return [det_score(d, class_index) for d in dets_at_frame(det_proto, frame_id)]
+
+
 def det_class_indices(det_proto: dict) -> list[int]:
     """Sorted set of class indices present anywhere in the det_proto."""
     idxs = set()
@@ -47,6 +79,42 @@ def det_class_indices(det_proto: dict) -> list[int]:
         for s in d["scores"]:
             idxs.add(int(s["class_index"]))
     return sorted(idxs)
+
+
+def empty_det_from_box(bbox: Sequence[float], frame_id: int) -> dict:
+    """A detection entry with a box but no class scores yet."""
+    return {"frame": int(frame_id), "bbox": [float(v) for v in bbox], "scores": []}
+
+
+def top_detections(det_proto: dict, top_k: int, class_index: Optional[int] = None) -> list[dict]:
+    """The ``top_k`` highest-scoring detections (of ``class_index``, or by
+    their best class), stable for ties."""
+
+    def best(d: dict) -> float:
+        if class_index is not None:
+            return det_score(d, class_index)
+        return max((float(s["score"]) for s in d["scores"]), default=float("-inf"))
+
+    return sorted(det_proto["detections"], key=best, reverse=True)[:top_k]
+
+
+def tracks_at_frame(track_proto: dict, frame_id: int) -> list[dict]:
+    """The per-frame box dict of every track that covers ``frame_id``."""
+    out = []
+    for track in track_proto["tracks"]:
+        for box in track:
+            if box["frame"] == frame_id:
+                out.append(box)
+                break
+    return out
+
+
+def track_box_at_frame(track: list[dict], frame_id: int) -> Optional[list[float]]:
+    """bbox of one track at a frame, or None when the track skips it."""
+    for box in track:
+        if box["frame"] == frame_id:
+            return box["bbox"]
+    return None
 
 
 def tracks_proto_from_boxes(

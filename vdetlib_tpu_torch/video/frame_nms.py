@@ -6,7 +6,8 @@ independently per frame and per class, write the filtered det_proto.
 Backends, with the JAX package's names so that commands carry over, and
 identical keep sets:
 
-- ``host``: numpy greedy NMS per (frame, class), no device involved;
+- ``host``: greedy NMS per (frame, class) in the native host library
+  (``kernels/nms.py::nms_host``), no device involved;
 - ``pallas``: pad to (T·C, N) and run the hand kernels that replace the
   Pallas ones on ``device``, routed as the JAX ``batched_nms_pallas`` routes:
   N <= 128 → kernel C, N > 128 → kernel D (up to its 8,192 slots on a card,
