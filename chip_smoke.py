@@ -3439,7 +3439,7 @@ def phase_serve(dev, kernels, ctx, card):
         engine = FusedEngine(models, cfg)
         direct = os.path.join(tmp, "direct_fused")
         for vid, box, fr in entries:
-            det_proto, tubelets = engine.run(vid, engine.load(vid, box, frames=fr))
+            det_proto, tubelets, _ = engine.run(vid, engine.load(vid, box, frames=fr))
             proto_dump(tubelets, os.path.join(direct, vid["video"], "tubelets.json"))
             proto_dump(det_proto, os.path.join(direct, vid["video"], "final.json"))
         got = tree_bytes(work["fused"])

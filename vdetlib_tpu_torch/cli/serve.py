@@ -279,7 +279,7 @@ def serve_loop(data_dir: str, workdir: str, models, cfg, *, engine: str = "stage
                 try:
                     if tried_fused:
                         loaded = fused_engine.load(vid, box, frames=fr)
-                        det_proto, tubelets = fused_engine.run(vid, loaded)
+                        det_proto, tubelets, _ = fused_engine.run(vid, loaded)
                         os.makedirs(os.path.dirname(done_marker), exist_ok=True)
                         proto_dump(tubelets, os.path.join(workdir, name, "tubelets.json"))
                         proto_dump(det_proto, done_marker)

@@ -15,7 +15,9 @@ test can feed the JAX detection outputs to the torch temporal stages.
 a ``torch.distributed`` mesh (``dist/sharding.py``).
 
 Each stage runs under a ``torch.profiler.record_function`` span named
-``fused.<stage>``, so a profiler trace splits the pipeline's time by stage.
+``fused.<stage>``, inside one ``fused.pipeline`` span a call, so a profiler
+trace splits the pipeline's time by stage and leaves the glue between them
+(slot packing, the MGP hops, the output budget) to the parent span.
 """
 
 from __future__ import annotations
@@ -211,8 +213,9 @@ class FusedPipeline:
 
         ``t_valid`` masks padded tail frames (see :func:`pad_snippet`);
         ``roi_mask`` (T, R) masks padded proposal slots."""
-        probs, reg_boxes = self.detect(frames, rois)
-        return self.temporal(frames, probs, reg_boxes, t_valid, roi_mask)
+        with record_function("fused.pipeline"):
+            probs, reg_boxes = self.detect(frames, rois)
+            return self.temporal(frames, probs, reg_boxes, t_valid, roi_mask)
 
     @torch.no_grad()
     def detect(self, frames, rois):

@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from vdetlib_tpu_torch.data.loader import FrameLoader
 from vdetlib_tpu_torch.pipeline.fused import (
@@ -61,6 +62,7 @@ from vdetlib_tpu_torch.pipeline.runner import dump_config
 from vdetlib_tpu_torch.protos import proto_dump, proto_exists
 from vdetlib_tpu_torch.protos.arrays import box_proto_to_arrays
 from vdetlib_tpu_torch.utils.log import StageMetrics, get_logger
+from vdetlib_tpu_torch.video.link import path_counts
 
 log = get_logger("pipeline.fused")
 
@@ -145,36 +147,37 @@ class FusedEngine:
 
     def load(self, vid_proto: dict, box_proto: Optional[dict], frames=None) -> Loaded:
         """Host side (the prefetch thread): decode or take the frames, pack and
-        scale the proposals, pad to the bucket, upload."""
-        if box_proto is None:
-            raise ValueError(
-                f"{vid_proto['video']}: fused engine needs proposals (box_proto); "
-                f"run the staged engine for proposal-free flows"
-            )
-        H, W = self.fcfg.image_hw
-        fids = [f["frame"] for f in vid_proto["frames"]]
-        loader = FrameLoader(vid_proto, target_hw=(H, W), frames=frames)
-        imgs, scales = [], []
-        try:
-            for _, img, scale in loader.iter_frames():
-                imgs.append(img)
-                scales.append(scale)
-        finally:
-            loader.close()
-        sy, sx = scales[0]
-        if any(s != (sy, sx) for s in scales):
-            raise ValueError(
-                f"{vid_proto['video']}: fused engine needs a constant frame size within a "
-                f"video (got varying decode scales)"
-            )
-        rois, roi_mask = box_proto_to_arrays(box_proto, fids, self.max_rois)
-        rois = rois * np.array([sx, sy, sx, sy], np.float32)
-        frames_p, rois_p, t_valid = pad_snippet(np.stack(imgs), rois, self.bucket)
-        mask_p = np.zeros((frames_p.shape[0], self.max_rois), bool)
-        mask_p[: roi_mask.shape[0]] = roi_mask
-        inv = np.array([1 / sx, 1 / sy, 1 / sx, 1 / sy], np.float32)
-        (frames_t, rois_t, mask_t), ready = self._upload(frames_p, rois_p, mask_p)
-        return Loaded(fids, frames_t, rois_t, mask_t, t_valid, inv, ready)
+        scale the proposals, pad to the bucket, upload (span ``runner.load``)."""
+        with record_function("runner.load"):
+            if box_proto is None:
+                raise ValueError(
+                    f"{vid_proto['video']}: fused engine needs proposals (box_proto); "
+                    f"run the staged engine for proposal-free flows"
+                )
+            H, W = self.fcfg.image_hw
+            fids = [f["frame"] for f in vid_proto["frames"]]
+            loader = FrameLoader(vid_proto, target_hw=(H, W), frames=frames)
+            imgs, scales = [], []
+            try:
+                for _, img, scale in loader.iter_frames():
+                    imgs.append(img)
+                    scales.append(scale)
+            finally:
+                loader.close()
+            sy, sx = scales[0]
+            if any(s != (sy, sx) for s in scales):
+                raise ValueError(
+                    f"{vid_proto['video']}: fused engine needs a constant frame size within a "
+                    f"video (got varying decode scales)"
+                )
+            rois, roi_mask = box_proto_to_arrays(box_proto, fids, self.max_rois)
+            rois = rois * np.array([sx, sy, sx, sy], np.float32)
+            frames_p, rois_p, t_valid = pad_snippet(np.stack(imgs), rois, self.bucket)
+            mask_p = np.zeros((frames_p.shape[0], self.max_rois), bool)
+            mask_p[: roi_mask.shape[0]] = roi_mask
+            inv = np.array([1 / sx, 1 / sy, 1 / sx, 1 / sy], np.float32)
+            (frames_t, rois_t, mask_t), ready = self._upload(frames_p, rois_p, mask_p)
+            return Loaded(fids, frames_t, rois_t, mask_t, t_valid, inv, ready)
 
     def _upload(self, *arrays):
         tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
@@ -187,19 +190,28 @@ class FusedEngine:
         return out, ready
 
     def _to_protos(self, vid_proto, fids, inv, out):
-        # back to native pixel space, trimmed to the real frames
+        """Back to native pixel space, trimmed to the real frames (span
+        ``runner.protos``) → (det_proto, tubelets, counters); the counters
+        come from the host copies the conversion makes."""
         T = len(fids)
-        out = out._replace(
-            det_boxes=out.det_boxes[:T].cpu() * torch.from_numpy(inv),
-            det_scores=out.det_scores[:T],
-            det_mask=out.det_mask[:T],
-            final_scores=out.final_scores[:, :T],
-            path_ids=out.path_ids[:, :T],
-        )
-        return fused_to_protos(out, fids, vid_proto["video"], min_score=self.min_score)
+        with record_function("runner.protos"):
+            out = out._replace(
+                det_boxes=out.det_boxes[:T].cpu() * torch.from_numpy(inv),
+                det_scores=out.det_scores[:T],
+                det_mask=out.det_mask[:T],
+                final_scores=out.final_scores[:, :T],
+                path_ids=out.path_ids[:, :T].cpu(),
+            )
+            det_proto, tubelets = fused_to_protos(out, fids, vid_proto["video"],
+                                                  min_score=self.min_score)
+        counters = {"frames": T, "final_dets": len(det_proto["detections"]),
+                    "tubelets": len(tubelets["tracks"]),
+                    **path_counts(out.path_ids.numpy(), self.fcfg.max_paths)}
+        return det_proto, tubelets, counters
 
     def run(self, vid_proto, loaded: Loaded):
-        """The pipeline and the proto conversion for one loaded video."""
+        """The pipeline and the proto conversion for one loaded video →
+        (det_proto, tubelets, counters): see :func:`run_videos_fused`."""
         if loaded.ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(loaded.ready)
@@ -210,7 +222,7 @@ class FusedEngine:
 
     def run_group(self, vid_protos, loadeds):
         """A group of same-bucket videos, one after another through the same
-        pipeline (see the module docstring); a list of (det_proto, tubelets)."""
+        pipeline (see the module docstring); a list of :meth:`run`'s results."""
         return [self.run(v, ld) for v, ld in zip(vid_protos, loadeds)]
 
 
@@ -220,14 +232,22 @@ def run_videos_fused(workdir: str, video_inputs, models, cfg, group_size: int = 
     ``(vid_proto, box_proto, frames)``; returns one dict of output paths per
     entry (``"error"`` set where a video failed under ``keep_going``).
 
-    Metrics (``StageMetrics("pipeline_fused")``): ``frames`` (valid frames
-    written), ``videos`` (entries not skipped) and ``prefetch_wait_s``
-    (seconds the main thread waited for the prefetch thread)."""
+    A written video's dict carries its ``counters``: ``frames`` (valid
+    frames), ``final_dets`` and ``tubelets`` (the entries of its two protos),
+    and seq-NMS's ``paths``, ``path_iters_live`` and ``path_iters_run``
+    (``video/link.py::path_counts``). Metrics
+    (``StageMetrics("pipeline_fused")``): those counters summed over the
+    written videos, ``videos`` (entries not skipped) and ``prefetch_wait_s``
+    (seconds the main thread waited for the prefetch thread).
+
+    Spans (``torch.profiler.record_function``): ``runner.load`` on the
+    prefetch thread, and on the calling thread ``runner.wait`` (the wait for
+    a load), the pipeline's ``fused.pipeline``, ``runner.protos`` and
+    ``runner.write`` (a video's directory and both protos)."""
     metrics = StageMetrics("pipeline_fused")
     dump_config(workdir, cfg)
     engine = FusedEngine(models, cfg, group_size=group_size)
     results = []
-    n_frames = 0
     wait_s = 0.0
 
     def paths_for(vid_proto):
@@ -260,7 +280,8 @@ def run_videos_fused(workdir: str, video_inputs, models, cfg, group_size: int = 
             for entry, f in zip(group, futs):
                 t0 = time.perf_counter()
                 try:
-                    loadeds.append(f.result())
+                    with record_function("runner.wait"):
+                        loadeds.append(f.result())
                     kept_group.append(entry)
                 except Exception as e:
                     if not keep_going:
@@ -292,18 +313,20 @@ def run_videos_fused(workdir: str, video_inputs, models, cfg, group_size: int = 
                         p["error"] = f"{type(e).__name__}: {e}"
                     start = end
                     continue
-                for (vid_proto, _, _, p), ld, (det_proto, tubelets) in zip(
-                        group[start:end], loadeds[start:end], outs):
-                    os.makedirs(os.path.dirname(p["final"]), exist_ok=True)
-                    proto_dump(tubelets, p["tubelets"])
-                    proto_dump(det_proto, p["final"])
-                    n_frames += len(ld.fids)
+                for (vid_proto, _, _, p), (det_proto, tubelets, counters) in zip(
+                        group[start:end], outs):
+                    with record_function("runner.write"):
+                        os.makedirs(os.path.dirname(p["final"]), exist_ok=True)
+                        proto_dump(tubelets, p["tubelets"])
+                        proto_dump(det_proto, p["final"])
+                    p["counters"] = counters
+                    for name, value in counters.items():
+                        metrics.add(name, value)
                     log.info("fused %s: %d frames, %d final dets, %d tubelets",
-                             vid_proto["video"], len(ld.fids), len(det_proto["detections"]),
-                             len(tubelets["tracks"]))
+                             vid_proto["video"], counters["frames"], counters["final_dets"],
+                             counters["tubelets"])
                 start = end
 
-    metrics.set("frames", n_frames)
     metrics.set("videos", len(todo))
     metrics.set("prefetch_wait_s", wait_s)
     metrics.finish()

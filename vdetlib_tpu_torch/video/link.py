@@ -21,7 +21,7 @@ from vdetlib_tpu_torch.protos.accessors import frame_ids as get_frame_ids
 from vdetlib_tpu_torch.protos.arrays import arrays_to_det_proto, det_proto_to_arrays
 from vdetlib_tpu_torch.utils.log import StageMetrics
 
-__all__ = ["LinkOptions", "seq_nms_video", "tubelets_from_path_ids"]
+__all__ = ["LinkOptions", "path_counts", "seq_nms_video", "tubelets_from_path_ids"]
 
 
 @dataclass(frozen=True)
@@ -71,6 +71,17 @@ def tubelets_from_path_ids(boxes, out_scores, path_ids, fids, video: str,
             if entries:
                 tracks.append(entries)
     return {"video": video, "method": "seq_nms", "tracks": tracks}
+
+
+def path_counts(path_ids, max_paths: int) -> dict:
+    """Seq-NMS's work, read from its path ids (L, T, N) (-1 = none): a lane
+    finds its largest path id + 1 paths, one an iteration until it runs out.
+    ``paths``: found over all lanes; ``path_iters_live``: the iterations
+    after which every lane had run out (the most found by one lane);
+    ``path_iters_run``: the ``max_paths`` iterations that ran."""
+    found = np.asarray(path_ids).reshape(len(path_ids), -1).max(1, initial=-1) + 1
+    return {"paths": int(found.sum()), "path_iters_live": int(found.max(initial=0)),
+            "path_iters_run": int(max_paths)}
 
 
 def seq_nms_video(vid_proto: dict, det_proto: dict, opts: LinkOptions = LinkOptions(),

@@ -51,6 +51,7 @@ from vdetlib_tpu_torch.nn.tracker_net import extract_template
 from vdetlib_tpu_torch.utils.common import iou as np_iou
 from vdetlib_tpu_torch.utils.log import StageMetrics
 from vdetlib_tpu_torch.video.detect import _detect_step
+from vdetlib_tpu_torch.video.link import path_counts
 from vdetlib_tpu_torch.video.track import _track_one_direction, ncc_update, tracker_features
 
 ENGINES = ("fused", "host")
@@ -635,8 +636,15 @@ def stream_video(det_model, trk_model, trk_cfg, frame_chunks: Iterator[np.ndarra
         (T_total, R, 4) array.
     Returns:
       dict with per-frame detection arrays (boxes/scores/keep — the slot
-      axis is 3R when opts.mgp else R), seq-NMS scores + path ids, and the
-      per-track segments.
+      axis is 3R when opts.mgp else R), seq-NMS scores + path ids, the
+      per-track segments, and ``metrics``: the run's ``StageMetrics("stream")``
+      record. Its counters: ``frames``, ``tracks``, ``chunks``, ``seeds``
+      (taken), ``seed_steps`` (``track_slots`` a chunk), ``backtrack_live``
+      (lane-steps alive in the backtrack), ``backtrack_run`` (lane-steps
+      run: ``track_slots`` × 2 × samples a backtracked chunk; the fused
+      engine backtracks every chunk, the host engine those that seed), and
+      seq-NMS's ``paths``, ``path_iters_live`` and ``path_iters_run``
+      (``video/link.py::path_counts``).
     """
     if opts.engine not in ENGINES:
         raise ValueError(f"stream engine {opts.engine!r}: one of {ENGINES}")
@@ -668,6 +676,7 @@ def _stream_video_fused(det_model, trk_model, trk_cfg, frame_chunks, rois_per_fr
         out = unpack(packed.cpu().numpy())
         seeds = [(int(out["seed_slot"][k]), int(out["seed_ti"][k]), out["seed_box"][k],
                   out["seed_score"][k]) for k in range(A) if out["seed_ok"][k] > 0.5]
+        _count_chunk(metrics, out, seeds, opts)
         book.add_chunk(out, seeds, Tc, t_global)
         all_boxes.append(out["out_boxes"][:Tc])
         all_scores.append(out["out_scores"][:Tc])
@@ -676,6 +685,19 @@ def _stream_video_fused(det_model, trk_model, trk_cfg, frame_chunks, rois_per_fr
 
     return _finalize_stream(all_boxes, all_scores, all_keep, book.finish(carry, t_global),
                             t_global, opts, metrics, dev)
+
+
+def _count_chunk(metrics: StageMetrics, out: dict, seeds, opts: StreamOptions) -> None:
+    """A chunk's seeding and backtrack counters (see :func:`stream_video`),
+    from its host outputs: ``out`` holds ``balive`` where the chunk's step
+    packed one (the fused engine always; the host engine where it
+    backtracked)."""
+    metrics.add("chunks")
+    metrics.add("seeds", len(seeds))
+    metrics.add("seed_steps", opts.track_slots)
+    if opts.backtrack and "balive" in out:
+        metrics.add("backtrack_live", int((out["balive"] > 0.5).sum()))
+        metrics.add("backtrack_run", out["balive"].size)
 
 
 def _seed_host(out_boxes, out_scores, out_keep, tb, ta, alive_end, Tc: int,
@@ -770,6 +792,7 @@ def _stream_video_host(det_model, trk_model, trk_cfg, frame_chunks, rois_per_fra
                     torch.from_numpy(lane_on).to(dev), opts.conf_thresh,
                 )
                 out["bb"], out["balive"] = bb.cpu().numpy(), balive.cpu().numpy()
+        _count_chunk(metrics, out, seeds, opts)
         book.add_chunk(out, seeds, Tc, t_global)
 
         last = Tc - 1
@@ -799,17 +822,20 @@ def _finalize_stream(all_boxes, all_scores, all_keep, track_segments, t_global, 
             torch.from_numpy(np.ascontiguousarray(np.moveaxis(keep_full, 1, 0))).to(device),
             opts.link_thresh, opts.suppress_thresh, max_paths=opts.max_paths,
         )
+    path_ids = path_ids.cpu().numpy()
     metrics.set("frames", t_global)
     metrics.set("tracks", len(track_segments))
-    metrics.finish()
+    for name, value in path_counts(path_ids, opts.max_paths).items():
+        metrics.set(name, value)
     return {
         "boxes": boxes_full,
         "scores": scores_full,
         "keep": keep_full,
         "seq_scores": seq_scores.cpu().numpy(),
-        "path_ids": path_ids.cpu().numpy(),
+        "path_ids": path_ids,
         "tracks": track_segments,
         "num_frames": t_global,
+        "metrics": metrics.finish(),
     }
 
 
