@@ -48,7 +48,11 @@ Phases, each synchronised and each fatal on failure:
    ``nms_grouped`` at 256 frames × 576 slots in 30 groups takes the
    sort-free fixpoint and launches no B (at 192 slots it launches B), and
    ``batched_nms`` over 2 problems of 8,200 slots takes it and launches no
-   D; keep sets identical;
+   D; keep sets identical; G, seq-NMS, at the sweep's 30 lanes × 64 slots
+   and 100 paths at T = 288 and 480: path ids and suppressions equal the
+   plain version's (timed once, on the card), scores within 1e-6
+   relative, one G launch a call, the call's device kernels counted, its
+   bound from ``utils/flops.py::seq_nms_flops``;
 4. reference: the tiny float32 fused pipeline (its tracker scan is kernel F
    on the card) and the tiny float32 stream on the card equal the same runs
    on the CPU (plain kernel versions) within the port's cross-framework
@@ -59,12 +63,13 @@ Phases, each synchronised and each fatal on failure:
    ``track_stride`` 2;
 5. fused slice: the ``base`` detector (C=31) and the default tracker with
    seeded random weights run ``pad_snippet`` → ``make_fused_pipeline`` →
-   ``fused_to_protos`` at 240×320 over three synthetic videos; kernels A, B
-   and F must launch;
+   ``fused_to_protos`` at 240×320 over three synthetic videos; kernels A, B,
+   F and G must launch;
 6. stream: the same models run ``stream_video`` → ``stream_to_protos`` at
    the stream tool's defaults (chunk 32, 64 proposals, 16 track slots) over
    videos of 96 and 100 frames (the second ends in a partial chunk of 4);
-   kernels A, B and C must launch;
+   kernels A, B and C must launch; the video-end seq-NMS over 192 slots a
+   frame takes the plain version (no G; ``seq_nms_batch.plain_calls``);
 7. frame NMS: ``frame_nms(backend="pallas")`` over synthetic protos of 64
    frames × 30 classes equals the ``host`` backend at 512 and 1,024 boxes
    (kernel D; frames of more than 512 detections) and at 128 (kernel C);
@@ -120,8 +125,9 @@ Phases, each synchronised and each fatal on failure:
    (window 1, "fastest", host dedup; kernel A exactly twice, forward and on
    the flipped frames), ``perturb_rescore_track_proto`` (8 perturbations,
    seed 0, 32 frames a batch), ``tubelet_rescore`` on the perturbed
-   track_proto, and ``seq_nms_video`` with the ``device`` and the ``host``
-   backends (the same paths, boxes and entries; scores within 1e-5). Then
+   track_proto, and ``seq_nms_video`` with the ``device`` (kernel G once)
+   and the ``host`` backends (the same paths, boxes and entries; scores
+   within 1e-5). Then
    ``mgp``, ``tubelet_rescore`` and ``seq_nms_video`` again on the CPU, each
    fed the card stage's input: the same (frame, class) entries, boxes
    within 0.5 px, scores within 0.01, the same seq-NMS paths. A one-frame
@@ -782,6 +788,107 @@ def batched_case(dev, times):
                       steps=steps[0], steps_mean=steps[1])
 
 
+# kernel G's timed shapes (frames; 30 class lanes of 64 slots, 100 paths):
+# the benchmark sweep's median video (282 frames in the 288 bucket) and its
+# longest bucket
+SEQ_NMS_FRAMES = (288, 480)
+SEQ_NMS_LANES, SEQ_NMS_SLOTS, SEQ_NMS_PATHS = 30, 64, 100
+
+
+def seq_nms_problem(C, T, N, seed, ties=False):
+    """A seq-NMS problem like the fused sweep's: boxes (T, N, 4) following
+    N // 4 drifting objects with jitter (links across frames, overlaps
+    within them), each frame's slots in a new order; scores (C, T, N),
+    with ``ties`` on a coarse grid and slot 1 a copy of slot 0 (box and
+    score: tied dp values); mask (C, T, N): ~85% valid and a padded invalid
+    tail of N // 8 slots. Shared with tests/test_torch_kernels_cuda.py."""
+    rng = np.random.default_rng(seed)
+    K = max(1, N // 4)
+    start = make_rois(1, seed, r=K)[0].astype(np.float64)  # (K, 4)
+    step = np.repeat(rng.normal(0, 2.0, (K, 2)), 2, axis=1)[:, [0, 2, 1, 3]]
+    objs = start[None] + step[None] * np.arange(T)[:, None, None]  # (T, K, 4)
+    boxes = objs[:, rng.integers(0, K, N)] + rng.normal(0, 3.0, (T, N, 4))
+    boxes = np.take_along_axis(boxes, np.argsort(rng.uniform(size=(T, N)), 1)[..., None], 1)
+    boxes = boxes.astype(np.float32)
+    scores = rng.uniform(0.05, 1.0, (C, T, N)).astype(np.float32)
+    if ties and N > 1:
+        scores = (np.round(scores * 8) / 8).astype(np.float32)
+        boxes[:, 1], scores[:, :, 1] = boxes[:, 0], scores[:, :, 0]
+    mask = rng.uniform(size=(C, T, N)) > 0.15
+    mask[:, :, N - N // 8:] = False
+    return boxes, scores, mask
+
+
+def seq_nms_equal(got, want, rescore):
+    """Kernel G's (out, path_id) against the plain version's: path ids and
+    -1 suppressions exactly, scores exactly under "max" and within 1e-6
+    relative under "avg" (its sum in another order). Returns the paths."""
+    (go, gp), (wo, wp) = ((o.cpu(), p.cpu()) for o, p in (got, want))
+    assert torch.equal(gp, wp), f"path ids differ at {int((gp != wp).sum())} slots"
+    assert torch.equal(go == -1, wo == -1), "suppressions differ"
+    if rescore == "max":
+        assert torch.equal(go, wo), "path scores differ"
+    else:
+        torch.testing.assert_close(go, wo, rtol=1e-6, atol=0)
+    return int((wp.amax((1, 2)) + 1).sum())
+
+
+def seq_nms_case(dev, times):
+    """Kernel G at the sweep's seq-NMS (30 lanes × 64 slots, 100 paths) at
+    T = 288 and 480: path ids, suppressions and scores equal the plain
+    version's (timed once on the card), one G launch a call, the call's
+    device kernels counted; timed beside the bound of
+    ``utils/flops.py::seq_nms_flops`` over the float32 peak. That bound
+    counts the dense (T - 1) · N² edges a path; G walks only the linked
+    ones, whose share of the dense count is printed beside it."""
+    from vdetlib_tpu_torch.kernels import seq_nms as kg
+    from vdetlib_tpu_torch.utils.flops import seq_nms_flops
+
+    shapes = {}
+    for T in SEQ_NMS_FRAMES:
+        C, N, paths = SEQ_NMS_LANES, SEQ_NMS_SLOTS, SEQ_NMS_PATHS
+        args = [torch.from_numpy(a).to(dev) for a in seq_nms_problem(C, T, N, seed=T)]
+
+        def call(a=args, paths=paths):
+            return kg.seq_nms_kernel(*a, 0.5, 0.3, max_paths=paths)
+
+        before = kg.seq_nms_kernel.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert kg.seq_nms_kernel.launches == before + 1, "kernel G did not launch once"
+        t0 = time.perf_counter()
+        want = kg.seq_nms_plain(*args, 0.5, 0.3, max_paths=paths)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n_paths = seq_nms_equal(got, want, "avg")
+        t = kernel_times(call, "seq_nms_kernel", iters=20)
+        n_dev = len(device_records(call, 1))
+        n_bytes = sum(a.numel() * a.element_size() for a in args) + C * T * N * 8
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, seq_nms_flops(T, N, C, paths))
+        link = kg.link_masks(args[0], 0.5, 0.3)[0]
+        linked = int(((link[..., None] >> torch.arange(64, device=dev)) & 1).sum())
+        t.update(paths=n_paths, plain_ms=plain_ms, device_kernels_per_call=n_dev,
+                 max_abs_err=float((got[0] - want[0]).abs().max()),
+                 linked_share=linked / max(1, (T - 1) * N * N))
+        shapes[T] = t
+        log(f"kernel seq_nms ({C}, {T}, {N}), {paths} paths: path ids and suppressions equal "
+            f"the plain version's ({n_paths} paths); {fmt_times(t)} (other device work "
+            f"{t['other_device_ms']:.5f} ms, {n_dev} device kernels a call); bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}, dense edges; {100 * t['linked_share']:.3f}% "
+            f"of them linked); plain {plain_ms:.1f} ms; scores within {t['max_abs_err']:.2e}")
+        times.append(f"seq_nms T={T} kernel {t['ms']:.4f} device {t['device_ms']:.5f} plain "
+                     f"{plain_ms:.1f} bound {t['bound_ms']:.6f}")
+    t = shapes[SEQ_NMS_FRAMES[0]]
+    return dict(name="seq_nms", route="cuda", source="vdetlib_tpu_torch/csrc/seq_nms.cu",
+                replaces=None, max_abs_err=t["max_abs_err"], ms=t["ms"], device_ms=t["device_ms"],
+                host_us=t["host_us"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None,
+                shapes={T: {k: v[k] for k in ("ms", "device_ms", "other_device_ms", "host_us",
+                                              "bound_ms", "bound_by", "plain_ms", "paths",
+                                              "device_kernels_per_call", "linked_share")}
+                        for T, v in shapes.items()})
+
+
 def frame_nms_problems(T, max_boxes, seed):
     """Phase 7's protos of T frames x 30 classes as (T * 30, max_boxes)
     problems: boxes, scores, valid, packed as ``video/frame_nms.py::
@@ -938,7 +1045,7 @@ def phase_kernels(dev):
     records = {"flow_level": flow_case(dev, times), "nms_grouped": grouped_case(dev, times),
                "nms_batched": batched_case(dev, times), "nms_sorted": sorted_case(dev, times),
                "resize_normalize": resize_case(dev, times),
-               "track_scan": track_scan_case(dev, times)}
+               "track_scan": track_scan_case(dev, times), "seq_nms": seq_nms_case(dev, times)}
     nms_routes_case(dev, records)
     log("times (ms a call; wall by CUDA events, device by the profiler; bound from the "
         "H100's published peaks): " + "; ".join(times))
@@ -1467,7 +1574,8 @@ def phase_slice(dev, kernels, profile_dir=None):
             f"n_tracks {int(out.n_tracks)}, det slots {int(out.det_mask.sum())}, "
             f"paths {int(out.path_ids.max()) + 1}, proto dets {len(det_proto['detections'])}, "
             f"tubelets {len(track_proto['tracks'])}")
-    launches = read_counts(kernels, "fused slice", ("flow_level", "nms_grouped", "track_scan"))
+    launches = read_counts(kernels, "fused slice",
+                           ("flow_level", "nms_grouped", "track_scan", "seq_nms"))
     peak = torch.cuda.max_memory_allocated()
     steady = sum(VIDEO_LENGTHS[1:]) / sum(times[1:])
     log(f"slice: {n_frames} frames in {sum(times):.3f} s = {n_frames / sum(times):.2f} frames/s "
@@ -1582,6 +1690,7 @@ def phase_stream(dev, kernels, models, opts, profile_dir=None):
     """The stream engine at ``opts`` over two synthetic videos. Returns the
     launches, rates and peak memory, and the phase's videos, calibrated
     options and runs for phase 9."""
+    from vdetlib_tpu_torch.kernels.seq_nms import seq_nms_batch
     from vdetlib_tpu_torch.video.stream import stream_to_protos, stream_video
 
     det, trk, trk_cfg = models
@@ -1596,6 +1705,7 @@ def phase_stream(dev, kernels, models, opts, profile_dir=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
+    plain_calls = seq_nms_batch.plain_calls
     runs = stream_runs(models, videos, opts)
     for i, ((frames, _, fids), (res, dt, per_chunk, tail_ms)) in enumerate(zip(videos, runs)):
         det_proto, tubelets, track_proto = stream_to_protos(res, fids, f"stream{i:03d}")
@@ -1614,6 +1724,9 @@ def phase_stream(dev, kernels, models, opts, profile_dir=None):
             f"{int(res['keep'].sum())} kept, proto dets {len(det_proto['detections'])}, "
             f"tubelets {len(tubelets['tracks'])}, online tracks {len(track_proto['tracks'])}")
     launches = read_counts(kernels, "stream", ("flow_level", "nms_grouped", "nms_batched"))
+    # the video-end linking of 3 x max_rois slots a frame keeps the tensor route
+    assert launches["seq_nms"] == 0 and seq_nms_batch.plain_calls == plain_calls + len(videos), \
+        "the stream's video-end seq-NMS left the plain version"
     peak = torch.cuda.max_memory_allocated()
     n_frames = sum(len(v[0]) for v in videos)
     fps, steady, med = stream_rates(runs, videos, opts.chunk)
@@ -2304,8 +2417,9 @@ def phase_staged_chain(dev, kernels, ctx, flow_rec):
         vid, rdet, lopts, device=dev), peaks)
     hdet, htub = timed(walls, "seq_nms host", lambda: seq_nms_video(
         vid, rdet, dataclasses.replace(lopts, backend="host")), peaks)
-    launches = read_counts(kernels, "staged chain", ("flow_level",))
-    assert sum(launches.values()) == 2, "the staged chain launched more than kernel A twice"
+    launches = read_counts(kernels, "staged chain", ("flow_level", "seq_nms"))
+    assert launches["seq_nms"] == 1 and sum(launches.values()) == 3, \
+        "the staged chain launched more than kernel A twice and G once (seq_nms device)"
 
     # what came out: MGP added copies, every live track box got perturbation
     # scores, the statistics reached the detections, seq-NMS found paths
@@ -3873,6 +3987,7 @@ def main(argv=None) -> int:
     from vdetlib_tpu_torch.kernels.nms_grouped import nms_grouped_kernel
     from vdetlib_tpu_torch.kernels.nms_sorted import nms_sorted_kernel
     from vdetlib_tpu_torch.kernels.preprocess import fused_resize_normalize_kernel
+    from vdetlib_tpu_torch.kernels.seq_nms import seq_nms_kernel
     from vdetlib_tpu_torch.kernels.track_scan import track_scan_kernel
     from vdetlib_tpu_torch.video.stream import StreamOptions
 
@@ -3901,7 +4016,7 @@ def main(argv=None) -> int:
     kernels = {"flow_level": flow_level, "nms_grouped": nms_grouped_kernel,
                "nms_batched": nms_batched_kernel, "nms_sorted": nms_sorted_kernel,
                "resize_normalize": fused_resize_normalize_kernel,
-               "track_scan": track_scan_kernel}
+               "track_scan": track_scan_kernel, "seq_nms": seq_nms_kernel}
     slice_counts, fps, steady, peak, slice_ctx = phase_slice(dev, kernels, args.profile)
     torch.cuda.synchronize()
     log(f"slice throughput on {card}: {fps:.2f} frames/s overall, {steady:.2f} frames/s "
@@ -3948,7 +4063,8 @@ def main(argv=None) -> int:
 
     own_path = {"flow_level": slice_counts, "nms_grouped": slice_counts,
                 "nms_batched": stream_counts, "nms_sorted": nms_counts,
-                "resize_normalize": staged_counts, "track_scan": staged_counts}
+                "resize_normalize": staged_counts, "track_scan": staged_counts,
+                "seq_nms": slice_counts}
     for name, rec in records.items():
         rec["launches"] = own_path[name][name]
     records["flow_level"]["launches_staged_chain"] = chain_counts["flow_level"]

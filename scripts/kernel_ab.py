@@ -30,7 +30,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 CASES = {"flow_level": "flow_case", "nms_grouped": "grouped_case", "nms_batched": "batched_case",
          "nms_sorted": "sorted_case", "resize_normalize": "resize_case",
-         "track_scan": "track_scan_case"}
+         "track_scan": "track_scan_case", "seq_nms": "seq_nms_case"}
 
 
 def main(argv=None) -> int:

@@ -52,7 +52,18 @@ At the shapes of the fused pipeline's main path (240×320 frames, the
   A = 17 and 34 (clusters of 2 and of 1 block a lane); ``track_batch``
   launches F only where ``kernel_takes(cfg) and snap is None``: with
   snapping, EMA templates or three scales it runs the plain scan on the
-  card, equal to the CPU's within the rollout bounds.
+  card, equal to the CPU's within the rollout bounds;
+- kernel G (seq-NMS, one launch a call), against the plain version on the
+  card: the sweep's 30 lanes × 64 slots at T = 288 and 480 with 100 paths,
+  N = 1, 17, 63 and 64, T = 1 and a long video of T = 3,200; tied scores
+  and tied dp values, lanes with every slot masked, budgets under the
+  paths available, "avg" and "max",
+  both offsets: path ids and -1 suppressions exactly, scores exactly under
+  "max" and within 1e-6 relative under "avg"; against tests/oracle/
+  seq_nms.py on a small problem; one G launch a call (the profiler sees
+  one ``seq_nms_kernel``); the stream's video-end shape (30, 282, 900)
+  takes the plain version (no launch, ``plain_calls`` counts it), equal
+  to the CPU's; the wrapper refuses what G does not take.
 
 Every test carries the ``cuda`` marker and needs a CUDA device; without one
 it skips (the decision is made in a fixture, so every worker collects the
@@ -66,7 +77,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import nms_problem
+from chip_smoke import nms_problem, seq_nms_equal, seq_nms_problem
 from vdetlib_tpu_torch.data.synth import SynthConfig, make_video
 from vdetlib_tpu_torch.kernels import flow as tflow
 from vdetlib_tpu_torch.kernels import flow_level as kl
@@ -74,6 +85,7 @@ from vdetlib_tpu_torch.kernels import nms_batched as kc
 from vdetlib_tpu_torch.kernels import nms_grouped as kb
 from vdetlib_tpu_torch.kernels import nms_sorted as kd
 from vdetlib_tpu_torch.kernels import preprocess as ke
+from vdetlib_tpu_torch.kernels import seq_nms as kg
 from vdetlib_tpu_torch.kernels import track_scan as kf
 
 pytestmark = pytest.mark.cuda
@@ -787,3 +799,126 @@ def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda, scan_inputs):
         kf.track_scan_kernel(feats, ats, box, tpl, TrackerConfig(search_factor=4.125), 0.5)
     with pytest.raises(ValueError, match="shared memory"):  # 24x24x96 float32
         kf.track_scan_kernel(feats.float(), ats, box, tpl, TrackerConfig(search_factor=3.0), 0.5)
+
+
+# kernel G's cases: (C, T, N, max_paths, rescore, offset, ties, a lane masked)
+SEQ_NMS_CASES = {
+    "sweep_288": (30, 288, 64, 100, "avg", 1.0, False, False),
+    "sweep_480": (30, 480, 64, 100, "max", 1.0, True, False),
+    "N1": (3, 40, 1, 100, "avg", 1.0, False, True),
+    "N17_ties_offset0": (3, 40, 17, 100, "avg", 0.0, True, True),
+    "N63_max": (3, 40, 63, 100, "max", 0.0, True, True),
+    "N64_budget": (4, 40, 64, 5, "avg", 1.0, True, True),
+    "N64_max_budget": (4, 40, 64, 7, "max", 0.0, False, False),
+    "T1": (3, 1, 64, 100, "avg", 1.0, True, True),
+    "T1_budget": (2, 1, 33, 4, "max", 1.0, False, False),
+    "T3200": (2, 3200, 64, 3, "avg", 1.0, True, True),
+}
+
+
+@pytest.mark.parametrize("case", SEQ_NMS_CASES)
+def test_seq_nms_kernel_equals_plain_version(cuda, case):
+    C, T, N, paths, rescore, offset, ties, masked = SEQ_NMS_CASES[case]
+    boxes, scores, mask = seq_nms_problem(C, T, N, seed=T + N, ties=ties)
+    if masked:
+        mask[1] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (boxes, scores, mask)]
+    before = kg.seq_nms_kernel.launches
+    got = kg.seq_nms_batch(*args, 0.5, 0.3, max_paths=paths, rescore=rescore, offset=offset)
+    torch.cuda.synchronize()
+    assert kg.seq_nms_kernel.launches == before + 1
+    want = kg.seq_nms_plain(*args, 0.5, 0.3, max_paths=paths, rescore=rescore, offset=offset)
+    n_paths = seq_nms_equal(got, want, rescore)
+    found = want[1].amax((1, 2)) + 1
+    assert n_paths >= C - masked and int(found.max()) <= paths
+    if masked:
+        assert int(found[1]) == 0 and bool((got[1][1] == -1).all())
+    if "budget" in case:
+        assert int(found.max()) == paths  # the budget ends some lane's paths
+    if N > 1 and T > 1:
+        assert bool((got[0] == -1).any()), "nothing suppressed"
+
+
+def _oracle_seq_nms():
+    """``tests/oracle/seq_nms.py::seq_nms``, imported from this checkout's
+    tests/ directory even where an installed ``tests`` package would shadow
+    it (as on the card's machine, where the file runs without conftest)."""
+    import sys
+    import types
+    from pathlib import Path
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "tests" or k.startswith("tests.")}
+    pkg = types.ModuleType("tests")
+    pkg.__path__ = [str(Path(__file__).resolve().parent)]
+    sys.modules["tests"] = pkg
+    try:
+        from tests.oracle.seq_nms import seq_nms
+    finally:
+        for k in [k for k in sys.modules if k == "tests" or k.startswith("tests.")]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return seq_nms
+
+
+def test_seq_nms_kernel_matches_oracle(cuda):
+    oracle_seq_nms = _oracle_seq_nms()
+    boxes, scores, mask = seq_nms_problem(2, 12, 17, seed=3, ties=True)
+    out, pid = (x.cpu().numpy() for x in kg.seq_nms_kernel(
+        *(torch.from_numpy(a).to(cuda) for a in (boxes, scores, mask)), 0.5, 0.3, max_paths=50))
+    for c in range(2):
+        s, m = scores[c], mask[c]
+        want, paths = oracle_seq_nms([boxes[t][m[t]] for t in range(12)],
+                                     [s[t][m[t]] for t in range(12)], 0.5, 0.3, max_paths=50)
+        for t in range(12):
+            np.testing.assert_allclose(out[c, t][m[t]], want[t], atol=1e-5, rtol=0)
+        assert int(pid[c].max()) + 1 == len(paths) > 2
+        for k, (_, path) in enumerate(paths):
+            on = {(t, int(np.nonzero(m[t])[0][i])) for t, i in path}
+            assert on == {tuple(x) for x in np.argwhere(pid[c] == k)}
+
+
+def test_seq_nms_kernel_is_one_launch_a_call(cuda):
+    """The profiler sees one G kernel a call; the rest of the call's device
+    work is ``link_masks``'s torch ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [torch.from_numpy(a).to(cuda) for a in seq_nms_problem(30, 64, 64, seed=2)]
+    kg.seq_nms_kernel(*args, 0.5, 0.3)
+    torch.cuda.synchronize()
+    before = kg.seq_nms_kernel.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kg.seq_nms_kernel(*args, 0.5, 0.3)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("seq_nms_kernel" in n for n in names) == 1, names
+    assert kg.seq_nms_kernel.launches == before + 1
+
+
+def test_seq_nms_routes_900_slots_to_the_plain_version(cuda):
+    """The stream's video-end linking, 30 lanes of 282 frames × 900 slots:
+    no G launch, ``plain_calls`` counts the call, equal to the CPU's."""
+    arrs = [torch.from_numpy(a) for a in seq_nms_problem(30, 282, 900, seed=21)]
+    before, plain = kg.seq_nms_kernel.launches, kg.seq_nms_batch.plain_calls
+    got = kg.seq_nms_batch(*(a.to(cuda) for a in arrs), 0.5, 0.3, max_paths=2)
+    torch.cuda.synchronize()
+    assert kg.seq_nms_kernel.launches == before
+    assert kg.seq_nms_batch.plain_calls == plain + 1
+    assert seq_nms_equal(got, kg.seq_nms_plain(*arrs, 0.5, 0.3, max_paths=2), "avg") == 60
+
+
+def test_seq_nms_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    boxes, scores, mask = (torch.from_numpy(a).to(cuda) for a in seq_nms_problem(3, 8, 16, seed=1))
+    with pytest.raises(TypeError):
+        kg.seq_nms_kernel(boxes, scores.double(), mask, 0.5, 0.3)
+    with pytest.raises(TypeError):
+        kg.seq_nms_kernel(boxes.double(), scores, mask, 0.5, 0.3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kg.seq_nms_kernel(boxes, scores.transpose(1, 2).contiguous().transpose(1, 2), mask, 0.5,
+                          0.3)
+    with pytest.raises(ValueError):
+        kg.seq_nms_kernel(boxes.cpu(), scores, mask, 0.5, 0.3)
+    wide = [torch.from_numpy(a).to(cuda) for a in seq_nms_problem(1, 4, 65, seed=1)]
+    with pytest.raises(ValueError, match="N <= 64"):
+        kg.seq_nms_kernel(*wide, 0.5, 0.3)

@@ -5,6 +5,9 @@ sums, taken in another order); seq-NMS path ids exactly (threshold and
 argmax decisions) and scores to 1e-5; both also against the numpy oracles in
 tests/oracle/. argmax ties must resolve to the FIRST maximum, as
 ``jnp.argmax`` does — the seq-NMS path start and backpointers depend on it.
+What the card's route does in torch before kernel G launches (the packed
+IoU tests) is checked here against the dense tests; the kernel itself in
+tests/test_torch_kernels_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,8 @@ from tests.oracle.rescore import rescore as oracle_rescore
 from tests.oracle.seq_nms import seq_nms as oracle_seq_nms
 from vdetlib_tpu.kernels.seq_nms import seq_nms_batch as j_seq_nms_batch
 from vdetlib_tpu.video.rescore import rescore_arrays as j_rescore
+from vdetlib_tpu_torch.geometry.boxes import pairwise_iou
+from vdetlib_tpu_torch.kernels import seq_nms as ksn
 from vdetlib_tpu_torch.kernels.seq_nms import seq_nms_batch, seq_nms_single
 from vdetlib_tpu_torch.video.rescore import rescore_arrays
 
@@ -121,3 +126,55 @@ def test_torch_argmax_returns_first_maximum():
     assert torch.argmax(x, dim=1).tolist() == [1, 0]
     assert int(torch.argmax(torch.tensor([3.0, 7.0, 7.0, 7.0]))) == 1
     assert np.asarray(jnp.argmax(jnp.asarray(x.numpy()), axis=1)).tolist() == [1, 0]
+
+
+def _unpack(words, n):
+    """int64 bit words (..., K) → (..., K, n) bool, bit i at [..., i]."""
+    return ((words[..., None] >> torch.arange(n)) & 1).bool()
+
+
+def _on_threshold_boxes():
+    """Frames whose pairs sit exactly on the thresholds 0.5 and 0.25 (legacy
+    offset: [0, 0, 9, 9] has area 100), beside pairs just above them."""
+    frame = np.array([[0, 0, 9, 9], [0, 0, 9, 4], [0, 0, 4, 4], [0, 0, 9, 5], [0, 0, 5, 4]],
+                     np.float32)
+    return np.stack([frame, frame[[1, 0, 3, 2, 4]], frame])
+
+
+@pytest.mark.parametrize("case", ["link", "over", "link_offset0", "over_offset0",
+                                  "on_threshold", "cpu_route"])
+def test_seq_nms_kernel_inputs_on_the_cpu(case):
+    """Kernel G's packed IoU tests (``link_masks``) equal the plain
+    version's dense ``pairwise_iou(...) > thresh``, at 64 slots (bit 63
+    included), at both offsets and exactly on the thresholds; CPU tensors
+    take the plain version, no launch and no count."""
+    if case == "cpu_route":
+        boxes, scores, mask = (_t(a) for a in _seq_problem(7, T=9, N=20))
+        launches, plain_calls = ksn.seq_nms_kernel.launches, seq_nms_batch.plain_calls
+        got = seq_nms_batch(boxes, scores, mask, 0.5, 0.3, max_paths=12, rescore="max")
+        want = ksn.seq_nms_plain(boxes, scores, mask, 0.5, 0.3, max_paths=12, rescore="max")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[1].max()) >= 2
+        assert (ksn.seq_nms_kernel.launches, seq_nms_batch.plain_calls) == (launches, plain_calls)
+        return
+    offset = 0.0 if case.endswith("offset0") else 1.0
+    link_thresh, suppress_thresh = (0.5, 0.25) if case == "on_threshold" else (0.5, 0.3)
+    if case == "on_threshold":
+        boxes = torch.from_numpy(_on_threshold_boxes())
+    else:
+        boxes = torch.from_numpy(_tracky(np.random.default_rng(11), 6, 64))
+    link, over = ksn.link_masks(boxes, link_thresh, suppress_thresh, offset)
+    T, N = boxes.shape[:2]
+    assert link.shape == (T - 1, N) and over.shape == (T, N) and link.dtype == torch.int64
+    want_link = pairwise_iou(boxes[:-1], boxes[1:], offset=offset) > link_thresh  # [t, i, j]
+    want_over = pairwise_iou(boxes, boxes, offset=offset) > suppress_thresh  # [t, p, j]
+    assert torch.equal(_unpack(link, N).transpose(1, 2), want_link)
+    assert torch.equal(_unpack(over, N), want_over)
+    if case == "on_threshold":
+        iou = pairwise_iou(boxes, boxes)
+        assert float(iou[0, 0, 1]) == 0.5 and float(iou[0, 0, 2]) == 0.25
+        assert not want_over[0, 0, 2] and want_over[0, 0, 1] and not want_link[0, 0, 0]
+    else:
+        assert 0 < int(want_link.sum()) < want_link.numel()
+        assert int(want_link[:, 63].sum()) > 0
+        assert int(want_over[:, :, 63].sum()) > T  # slot 63 overlaps more than itself

@@ -92,6 +92,13 @@ KERNELS = {
         ("vdet_track_scan", (_P, _I, _P, _P, _P, _P, _P, _P) + (_I,) * 8 + (_F, _F, _I, _I, _P)),
         ("-fmad=false",),
     ),
+    # seq_nms(scores, mask, link, over, out, pid, alive, path, bp, C, T, N,
+    # max_paths, rescore_max, stream); dp adds and the statistic round as the
+    # plain version's ops do
+    "seq_nms": (
+        ("vdet_seq_nms", (_P,) * 9 + (_I,) * 5 + (_P,)),
+        ("-fmad=false",),
+    ),
 }
 
 # host libraries (plain C++, built with g++), in KERNELS' layout. No
