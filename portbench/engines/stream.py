@@ -8,9 +8,12 @@ are processed, started until ``--seconds`` have passed. A chunk's latency
 runs from the engine's pull of it from the benchmark's iterator to the
 engine's next pull; the pull after a video's last chunk ends that chunk,
 and the video-end linking runs after it, inside the window but outside
-every chunk. ``chunk_ms_p90`` is the 90th percentile over every full chunk
-of the window. With ``--trace 1`` a traced run of the pool's median-length
-video follows the window. Then the program's models are
+every chunk. ``stream_frames_per_s`` is the frames of every video of the
+window over the window, from its start to the last video's end, its
+video-end linking included; ``stream.chunk_ms_p90``, a per-layer metric,
+is the 90th percentile over every full chunk of the window. With
+``--trace 1`` a traced run of the pool's median-length video follows the
+window. Then the program's models are
 freed and the reference checks ``check_videos`` finished videos (the
 longest among them): the emissions and the linking whole, the tracker
 step by step from the program's states, the seeds against the emissions.
@@ -119,6 +122,7 @@ def run(cell, args, device, t0: float) -> dict:
             lambda: stream_one(det, trk, trk_cfg, opts, *pool[i]))
         nms_valid, mgp_valid = valid_counts(res, opts.max_rois)
         context = {"trace": trace, "config": config, "chunks_ms": full_ms,
+                   "window_frames": [pool[i][0].shape[0] for _, i in done], "window_s": window_s,
                    "traced_chunks_ms": lat, "traced_chunk_sizes": sizes,
                    "nms_valid": nms_valid.tolist(), "mgp_valid": mgp_valid.tolist()}
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -141,9 +145,10 @@ def run(cell, args, device, t0: float) -> dict:
                 worst[key] = max(worst[key], nums[key])
         worst["empty_checked"] += nums["tracks"] == 0 or nums["kept"] == 0
     correct, checks = judge(worst, config["check"]["limits"])
-    p90 = float(np.percentile(full_ms, 90)) if full_ms else float("nan")
-    return {"end_to_end": {"chunk_ms_p90": p90, "setup_s": setup_s},
-            "counts": {"full_chunks": len(full_ms), "videos": len(done), "window_s": window_s,
-                       "cpu_s": cpu_s},
+    frames = sum(pool[i][0].shape[0] for _, i in done)
+    return {"end_to_end": {"stream_frames_per_s": frames / window_s, "setup_s": setup_s},
+            "counts": {"frames": frames, "full_chunks": len(full_ms), "videos": len(done),
+                       "window_s": window_s, "cpu_s": cpu_s,
+                       "chunk_ms_p90": float(np.percentile(full_ms, 90)) if full_ms else None},
             "correct": correct, "checks": checks, "attempted": len(done), "failed": 0,
             "memory_peak_bytes": peak, "context": context}

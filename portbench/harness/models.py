@@ -7,11 +7,16 @@ not truncated), biases are zero and GroupNorm scales one, from one
 the class logits scaled by ``cls_logit_scale``, so that the configuration's
 own thresholds select detections, and the box deltas by ``bbox_scale``.
 The same state dicts load into the program's modules and the reference's.
+The detector is the configuration's architecture
+(``portbench/architectures/<name>.py``); the tracker is every T-CNN
+configuration's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from portbench import architectures
 
 
 def draw_state(module: torch.nn.Module, seed: int, device) -> dict:
@@ -35,28 +40,18 @@ def draw_state(module: torch.nn.Module, seed: int, device) -> dict:
     return state
 
 
-def shape_head(state: dict, weights: dict) -> dict:
-    """Scale the classifier's and the regressor's kernels as ``weights`` says."""
-    state["head.cls.weight"] = state["head.cls.weight"] * weights["cls_logit_scale"]
-    state["head.bbox.weight"] = state["head.bbox.weight"] * weights["bbox_scale"]
-    return state
-
-
 def program_models(config: dict, seed: int, device):
     """The port's detector and tracker for ``config`` with seeded weights →
     (detector, tracker, tracker config, detector state, tracker state)."""
-    from vdetlib_tpu_torch.nn.detector import Detector
-    from vdetlib_tpu_torch.nn.presets import detector_preset
     from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, TrackerNet
 
-    det_cfg = detector_preset(config["model"], num_classes=config["num_classes"])
-    check_detector(det_cfg, config["detector"])
+    arch = architectures.of(config)
+    det = arch.program(config, device)
     trk_cfg = TrackerConfig()
     check_tracker(trk_cfg, config["tracker"])
     with torch.device(device):
-        det = Detector(det_cfg).eval()
         trk = TrackerNet(trk_cfg).eval()
-    det_state = shape_head(draw_state(det, seed, device), config["weights"])
+    det_state = arch.shape_head(draw_state(det, seed, device), config["weights"])
     trk_state = draw_state(trk, seed + 1, device)
     det.load_state_dict(det_state)
     trk.load_state_dict(trk_state)
@@ -65,27 +60,17 @@ def program_models(config: dict, seed: int, device):
     return det, trk, trk_cfg, det_state, trk_state
 
 
-def check_detector(det_cfg, arch: dict) -> None:
-    """Refuse a preset that is not the configuration file's detector."""
-    bb = det_cfg.backbone
-    got = {"num_classes": det_cfg.num_classes, "stem_features": bb.stem_features,
-           "stage_sizes": list(bb.stage_sizes), "stage_features": list(bb.stage_features),
-           "roi_pool": det_cfg.roi_pool, "head_hidden": det_cfg.head_hidden,
-           "pixel_mean": list(det_cfg.pixel_mean), "pixel_scale": det_cfg.pixel_scale,
-           "backbone_dtype": str(bb.dtype).replace("torch.", "")}
-    _same("detector", got, arch)
-
-
 def check_tracker(trk_cfg, arch: dict) -> None:
     """Refuse a tracker config that is not the configuration file's tracker."""
     got = {"features": list(trk_cfg.features), "out_features": trk_cfg.out_features,
            "template_pool": trk_cfg.template_pool, "search_factor": trk_cfg.search_factor,
            "num_scales": trk_cfg.num_scales, "template_eta": trk_cfg.template_eta,
            "dtype": str(trk_cfg.dtype).replace("torch.", "")}
-    _same("tracker", got, arch)
+    same("tracker", got, arch)
 
 
-def _same(what: str, got: dict, want: dict) -> None:
+def same(what: str, got: dict, want: dict) -> None:
+    """Refuse a network of the program that is not the configuration's."""
     diff = {k: (got[k], want.get(k)) for k in got if got[k] != want.get(k)}
     if diff:
         raise SystemExit(f"the program's {what} is not the configuration's: {diff}")
@@ -94,12 +79,13 @@ def _same(what: str, got: dict, want: dict) -> None:
 def reference_models(config: dict, det_state: dict, trk_state: dict, device, lower: bool = False):
     """The reference's detector and tracker with the same weights; ``lower``
     computes every stage one number format down (the control)."""
-    from portbench.reference.nets import Detector, TrackerNet
+    from portbench.reference.nets import TrackerNet
     from portbench.reference.precision import Precisions
 
-    prec = Precisions.from_config(config["precision"], lower=lower)
+    arch = architectures.of(config)
+    prec = Precisions.from_config(config["precision"], arch.STAGES, lower=lower)
     with torch.device(device):
-        det = Detector(config["detector"], prec).eval()
+        det = arch.reference(config["detector"], prec).eval()
         trk = TrackerNet(config["tracker"], prec).eval()
     det.load_state_dict(det_state)
     trk.load_state_dict(trk_state)

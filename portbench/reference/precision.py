@@ -16,8 +16,6 @@ TF32 off goes to TF32, bfloat16 to fp8.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
-
 import torch
 
 FP8_MAX = 448.0
@@ -55,24 +53,28 @@ class Prec:
         return self.name
 
 
-@dataclass(frozen=True)
-class Precisions:
-    """Every stage's format, as a configuration file's ``precision`` states it."""
+SHARED = ("flow", "tracker_features", "tracker_search_pool", "tracker_template", "tracker_corr")
 
-    backbone: Prec
-    head_hidden: Prec
-    head_out: Prec
-    roi_align: Prec
-    flow: Prec
-    tracker_features: Prec
-    tracker_search_pool: Prec
-    tracker_template: Prec
-    tracker_corr: Prec
+
+class Precisions:
+    """Every stage's format, as a configuration file's ``precision`` states
+    it, one attribute a stage (``prec.flow``); frozen."""
+
+    def __init__(self, **formats: Prec):
+        self.__dict__.update(formats)
+
+    def __setattr__(self, name, value):
+        raise AttributeError("Precisions is frozen")
+
+    def __repr__(self) -> str:
+        return "Precisions(" + ", ".join(f"{k}={v!r}" for k, v in vars(self).items()) + ")"
 
     @classmethod
-    def from_config(cls, spec: dict, lower: bool = False) -> "Precisions":
-        """From a ``precision`` mapping; ``lower`` takes each one step down."""
-        names = {f.name for f in fields(cls)}
+    def from_config(cls, spec: dict, stages, lower: bool = False) -> "Precisions":
+        """From a ``precision`` mapping that states exactly the shared stages
+        and ``stages`` (the architecture's); ``lower`` takes each one step
+        down."""
+        names = set(SHARED) | set(stages)
         if set(spec) != names:
             raise ValueError(f"precision needs exactly the stages {sorted(names)}")
         return cls(**{k: Prec(LOWER[v] if lower else v) for k, v in spec.items()})

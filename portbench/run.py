@@ -7,9 +7,11 @@ which sets up from the seed, measures for ``--seconds`` and checks what the
 timed path produced against the plain reference. With ``--trace 0`` the
 line carries the cell's end-to-end metrics; with ``--trace 1`` its
 per-layer metrics, each read by ``portbench/metrics/<name>.py`` from a
-traced part of the run. Exits non-zero without a result when the machine
-has fewer CUDA cards than the cell asks for, or when JAX or the JAX package
-is loaded once the window has closed.
+traced part of the run. Exits non-zero without a result when the
+configuration names no detector architecture of ``portbench/architectures/``
+or states other number-format stages than it reads, when the machine has
+fewer CUDA cards than the cell asks for, or when JAX or the JAX package is
+loaded once the window has closed.
 """
 
 import time
@@ -25,6 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from portbench import architectures  # noqa: E402
 from portbench.harness import common  # noqa: E402
 
 
@@ -42,6 +45,7 @@ def main(argv=None) -> int:
     args = common.parse_args(argv)
     cell = common.load_cell(args.workload)
     common.prepare_process()
+    architectures.of(cell.config)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

@@ -5,6 +5,7 @@ import os
 
 import pytest
 
+from portbench import architectures
 from portbench.harness.trace import reduce_events
 from portbench.run import read_metric
 from portbench.yardstick import flops as yf
@@ -106,7 +107,8 @@ def test_sweep_readers():
         100 * work.fused_nms_dedup(64, 192) / 0.001)
     assert got["roofline.track_rounds.sweep"] == pytest.approx(
         100 * work.fused_track_rounds(64, hw, c["tracker"], c["fused"]) / 0.005)
-    flops = sum(sum(yf.fused_dispatch_flops(c["detector"], c["tracker"], c["fused"], t,
+    arch = architectures.of(c)
+    flops = sum(sum(yf.fused_dispatch_flops(arch, c["detector"], c["tracker"], c["fused"], t,
                                             rois).values()) for t in (50, 30))
     assert got["mfu.sweep"] == pytest.approx(100 * flops / (2.0 * yf.PEAK_BF16_FLOPS))
     assert got["idle.sweep"] == pytest.approx(100 * (1 - 0.015 / 0.1))
@@ -126,10 +128,11 @@ def test_stream_readers_and_silence():
     ctx = {"trace": reduce_events(events(spans)), "config": c, "peak_mem_bytes": 2**30,
            "chunks_ms": [400.0, 420.0, 500.0], "traced_chunks_ms": [50.0, 30.0],
            "traced_chunk_sizes": [32, 5], "nms_valid": [3] * (37 * per),
-           "mgp_valid": [9] * (37 * per)}
+           "mgp_valid": [9] * (37 * per), "window_frames": [37, 64], "window_s": 2.5}
     got = {m["name"]: read_metric(m["name"], ctx) for m in _bench()["per_layer"]
            if ".stream" in m["name"] or m["name"].startswith("stream.")}
     assert got["stream.chunk_ms_p50"] == 420.0
+    assert got["stream.chunk_ms_p90"] == pytest.approx(484.0)
     assert got["track.share.stream"] == pytest.approx(100 * 0.038 / 0.08)
     hw, rois = tuple(c["image_hw"]), c["max_rois"]
     nms = (work.stream_nms(32, per, rois, [3] * 32 * per)
@@ -138,8 +141,13 @@ def test_stream_readers_and_silence():
     mgp = (work.stream_mgp(32, hw, per, rois, "fastest", [9] * 32 * per)
            + work.stream_mgp(32, hw, per, rois, "fastest", [9] * 5 * per))
     assert got["roofline.mgp.stream"] == pytest.approx(100 * mgp / 0.004)
-    chunk = sum(yf.stream_chunk_flops(c["detector"], c["tracker"], c["stream"], hw).values())
+    chunk = sum(yf.stream_chunk_flops(architectures.of(c), c["detector"], c["tracker"], c["stream"],
+                                      hw).values())
     assert got["mfu.stream"] == pytest.approx(100 * 3 * chunk / (1.32 * yf.PEAK_BF16_FLOPS))
+    # 37 frames are two chunks, 64 two; each video links once at 900 slots
+    link = yf.seq_nms_flops(37, 900, 30, 64) + yf.seq_nms_flops(64, 900, 30, 64)
+    assert got["mfu.stream_window"] == pytest.approx(100 * (4 * chunk + link)
+                                                     / (2.5 * yf.PEAK_BF16_FLOPS))
     assert got["idle.stream"] == pytest.approx(100 * (1 - 0.010 / 0.1))
     # a reader whose span never ran returns nothing, never 0
     ctx["trace"] = reduce_events(events([("stream.detect", 0, 10, [("conv", 1, 2)])]))

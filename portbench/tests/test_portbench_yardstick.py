@@ -7,6 +7,7 @@ import os
 
 import pytest
 
+from portbench import architectures
 from portbench.yardstick import flops as yf
 from portbench.yardstick import work
 
@@ -31,7 +32,8 @@ def test_fused_flops_equal_the_ports(t):
     port = pf.fused_dispatch_flops(
         detector_preset("base", num_classes=31), TrackerConfig(),
         FusedConfig(**{**fcfg, "image_hw": tuple(fcfg["image_hw"])}), t, c["max_rois"])
-    mine = yf.fused_dispatch_flops(c["detector"], c["tracker"], fcfg, t, c["max_rois"])
+    mine = yf.fused_dispatch_flops(architectures.of(c), c["detector"], c["tracker"], fcfg, t,
+                                   c["max_rois"])
     assert {x.name: x.flops for x in port} == mine
     assert (yf.PEAK_BF16_FLOPS, yf.PEAK_F32_FLOPS, yf.HBM_BYTES_PER_S) == (
         pf.PEAK_BF16_FLOPS, pf.PEAK_F32_FLOPS, pf.HBM_BYTES_PER_S)
@@ -46,7 +48,7 @@ def test_stream_chunk_flops_compose_the_ports_components():
     det, trk = detector_preset("base", num_classes=31), TrackerConfig()
     h, w = c["image_hw"]
     s = c["stream"]
-    got = yf.stream_chunk_flops(c["detector"], c["tracker"], s, c["image_hw"])
+    got = yf.stream_chunk_flops(architectures.of(c), c["detector"], c["tracker"], s, c["image_hw"])
     hf, wf = h // 16, w // 16
     assert got["detect"] == s["chunk"] * (
         pf.backbone_flops(det.backbone, h, w)

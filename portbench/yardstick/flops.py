@@ -3,8 +3,9 @@
 A frozen copy of the port's ``utils/flops.py`` (2·MAC for every convolution
 and matmul; arithmetic-op counts for the stages that run as elementwise
 work), taking a configuration file's plain mappings instead of the port's
-config objects. ``portbench/tests`` holds it equal to the port's model at the
-cells' shapes.
+config objects; a detector's own terms are its architecture module's
+``detect_flops`` (``portbench/architectures/``). ``portbench/tests`` holds it
+equal to the port's model at the cells' shapes.
 
 MFU convention: model FLOPs ÷ (seconds × the card's bf16 dense tensor-core
 peak), whatever unit or dtype each op really runs on.
@@ -22,34 +23,8 @@ def conv2d(h_out: int, w_out: int, kh: int, kw: int, cin: int, cout: int) -> flo
     return 2.0 * h_out * w_out * kh * kw * cin * cout
 
 
-def backbone_flops(det: dict, h: int, w: int) -> float:
-    """Per-image conv FLOPs of the residual backbone."""
-    total = 0.0
-    h2, w2 = h // 2, w // 2
-    total += conv2d(h2, w2, 7, 7, 3, det["stem_features"])
-    hs, ws = h2 // 2, w2 // 2
-    cin = det["stem_features"]
-    for si, (n_blocks, feats) in enumerate(zip(det["stage_sizes"], det["stage_features"])):
-        for bi in range(n_blocks):
-            stride = 2 if (bi == 0 and si > 0) else 1
-            hs, ws = hs // stride, ws // stride
-            total += conv2d(hs, ws, 3, 3, cin, feats)
-            total += conv2d(hs, ws, 3, 3, feats, feats)
-            if cin != feats or stride != 1:
-                total += conv2d(hs, ws, 1, 1, cin, feats)
-            cin = feats
-    return total
-
-
 def roi_align_flops(h_f: int, w_f: int, c: int, pool: int, n_rois: int) -> float:
     per_roi = 2.0 * pool * h_f * w_f * c + 2.0 * pool * pool * w_f * c
-    return n_rois * per_roi
-
-
-def rcnn_head_flops(pool: int, c: int, hidden: int, num_classes: int, n_rois: int) -> float:
-    d_in = pool * pool * c
-    per_roi = (2.0 * d_in * hidden + 2.0 * hidden * hidden + 2.0 * hidden * num_classes
-               + 2.0 * hidden * num_classes * 4)
     return n_rois * per_roi
 
 
@@ -120,28 +95,16 @@ def rescore_flops(t: int, k: int, n: int, c: int) -> float:
     return t * k * iou_matrix_flops(1, n) + 2.0 * t * k * n * c
 
 
-def detect_flops(det: dict, h: int, w: int, t: int, n_rois: int) -> float:
-    """Backbone, ROI align and head over ``t`` frames of ``n_rois`` proposals."""
-    hf, wf = h // 16, w // 16
-    cf = det["stage_features"][-1]
-    return t * (backbone_flops(det, h, w)
-                + roi_align_flops(hf, wf, cf, det["roi_pool"], n_rois)
-                + rcnn_head_flops(det["roi_pool"], cf, det["head_hidden"], det["num_classes"],
-                                  n_rois))
-
-
-def fused_dispatch_flops(det: dict, trk: dict, fused: dict, t: int, n_rois: int) -> dict:
+def fused_dispatch_flops(arch, det: dict, trk: dict, fused: dict, t: int, n_rois: int) -> dict:
     """Per-component FLOPs of one fused-pipeline call over a video of ``t``
-    frames and ``n_rois`` proposals a frame (the port's component names)."""
+    frames and ``n_rois`` proposals a frame (the port's component names);
+    ``arch`` is the detector's architecture module, ``det`` its section."""
     h, w = fused["image_hw"]
     c = det["num_classes"]
-    hf, wf = h // 16, w // 16
-    cf = det["stage_features"][-1]
     t_trk = -(-t // fused["track_stride"])
+    detect = {k: t * v for k, v in arch.detect_flops(det, h, w, n_rois).items()}
     return {
-        "detect/backbone": t * backbone_flops(det, h, w),
-        "detect/roi_align": t * roi_align_flops(hf, wf, cf, det["roi_pool"], n_rois),
-        "detect/head": t * rcnn_head_flops(det["roi_pool"], cf, det["head_hidden"], c, n_rois),
+        **detect,
         "track/features": t_trk * tracker_feat_flops(trk, h, w),
         "track/ncc_scan": tracker_scan_flops(trk, h, w, t_trk, fused["anchors_per_round"]),
         "mgp/flow": flow_flops(h, w, 2 * (t - 1), preset=fused["flow_preset"]),
@@ -152,15 +115,16 @@ def fused_dispatch_flops(det: dict, trk: dict, fused: dict, t: int, n_rois: int)
     }
 
 
-def stream_chunk_flops(det: dict, trk: dict, stream: dict, hw) -> dict:
+def stream_chunk_flops(arch, det: dict, trk: dict, stream: dict, hw) -> dict:
     """Per-component FLOPs of one full chunk of the stream engine (stride 1):
     detection, per-frame NMS, flow over the chunk and its halo both ways, the
     MGP dedup, the tracker's features, the slots' NCC steps and the
-    backtrack's (one lane a slot over the previous and the current chunk)."""
+    backtrack's (one lane a slot over the previous and the current chunk);
+    ``arch`` and ``det`` as :func:`fused_dispatch_flops` takes them."""
     h, w = hw
     L, R, C, A = stream["chunk"], stream["max_rois"], stream["num_classes"], stream["track_slots"]
     return {
-        "detect": detect_flops(det, h, w, L, R),
+        "detect": L * sum(arch.detect_flops(det, h, w, R).values()),
         "nms": L * (C - 1) * (iou_matrix_flops(R, R) + 8 * 3.0 * R * R),
         "mgp/flow": flow_flops(h, w, 2 * L, preset=stream["flow_preset"]),
         "mgp/nms": L * (C - 1) * (iou_matrix_flops(3 * R, 3 * R) + 8 * 3.0 * 9 * R * R),
