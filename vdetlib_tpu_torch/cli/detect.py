@@ -21,7 +21,8 @@ def main(argv=None) -> int:
     p.add_argument("output")
     p.add_argument("--weights", default=None,
                    help="detector checkpoint (pipeline/checkpoint.py format)")
-    p.add_argument("--model", default="base", choices=["base", "small", "tiny"])
+    p.add_argument("--model", default="base",
+                   choices=["base", "small", "tiny", "rfcn_r101", "rfcn_tiny"])
     p.add_argument("--num_classes", type=int, default=31)
     p.add_argument("--image_hw", type=int, nargs=2, default=[240, 320])
     p.add_argument("--batch_size", type=int, default=8)

@@ -99,7 +99,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("workdir")
     p.add_argument("--detector_weights", default=None)
     p.add_argument("--tracker_weights", default=None)
-    p.add_argument("--model", default="tiny", choices=["base", "small", "tiny"])
+    p.add_argument("--model", default="tiny",
+                   choices=["base", "small", "tiny", "rfcn_r101", "rfcn_tiny"])
     p.add_argument("--num_classes", type=int, default=31)
     p.add_argument("--image_hw", type=int, nargs=2, default=[240, 320])
     p.add_argument("--max_rois", type=int, default=64)

@@ -14,7 +14,8 @@ definition: it counts float32 and SIMT work at the tensor-core rate).
 
 The functions take the port's config objects (``nn/presets.py``,
 ``nn/tracker_net.py::TrackerConfig``, ``pipeline/fused.py::FusedConfig``), so
-a preset change reprices automatically.
+a preset change reprices automatically; :func:`detect_flops` prices a
+detector by its kind (``Detector`` or ``RFCN``), under the same three names.
 """
 
 from __future__ import annotations
@@ -83,6 +84,72 @@ def rcnn_head_flops(pool: int, c: int, hidden: int, num_classes: int, n_rois: in
         + 2.0 * hidden * num_classes * 4
     )
     return n_rois * per_roi
+
+
+def conv_out(n: int, k: int, stride: int, pad: int, dilation: int = 1) -> int:
+    """A convolution's output size along one axis (Caffe's and torch's rule)."""
+    return (n + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+
+
+def rfcn_trunk_flops(cfg, h: int, w: int) -> tuple[float, int, int]:
+    """Per-image conv FLOPs of ``nn/rfcn.py::Trunk`` → (FLOPs, map rows, map columns)."""
+    h, w = conv_out(h, 7, 2, 3), conv_out(w, 7, 2, 3)
+    total = conv2d(h, w, 7, 7, 3, cfg.stem_features)
+    h, w = -(-(h - 3) // 2) + 1, -(-(w - 3) // 2) + 1  # Caffe's 3x3/2 max-pool, rounded up
+    cin = cfg.stem_features
+    last = len(cfg.stage_sizes) - 1
+    for si, (n, mid, out) in enumerate(zip(cfg.stage_sizes, cfg.bottleneck_features,
+                                           cfg.stage_features)):
+        for b in range(n):
+            stride = 2 if (b == 0 and 0 < si < last) else 1
+            h, w = conv_out(h, 1, stride, 0), conv_out(w, 1, stride, 0)
+            total += (conv2d(h, w, 1, 1, cin, mid) + conv2d(h, w, 3, 3, mid, mid)
+                      + conv2d(h, w, 1, 1, mid, out))
+            if cin != out or stride != 1:  # 1x1 projection
+                total += conv2d(h, w, 1, 1, cin, out)
+            cin = out
+    return total, h, w
+
+
+def psroi_flops(h_f: int, w_f: int, groups: int, k: int, n_rois: int) -> float:
+    """PS-ROI pooling from a summed-area table and voting (``nn/rfcn.py``):
+    two adds a map element for the table, three adds and a division a bin
+    and group for its mean, one operation a bin and group for the vote."""
+    return 2.0 * h_f * w_f * groups * k * k + n_rois * groups * k * k * (4 + 1)
+
+
+def detect_flops(det_cfg, h: int, w: int, n_rois: int) -> list[ComponentFlops]:
+    """One frame's detection FLOPs by component: ``detect/backbone``,
+    ``detect/roi_align`` (R-FCN: PS-ROI pooling and voting, SIMT work) and
+    ``detect/head`` (R-FCN: the reduction and the maps)."""
+    from vdetlib_tpu_torch.nn.rfcn import RFCNConfig
+
+    c = det_cfg.num_classes
+    if isinstance(det_cfg, RFCNConfig):
+        trunk, hf, wf = rfcn_trunk_flops(det_cfg, h, w)
+        k, red = det_cfg.ps_pool, det_cfg.reduce_features
+        maps = k * k * (c + 4)
+        return [
+            ComponentFlops("detect/backbone", trunk, MATMUL,
+                           f"@ {h}x{w}, bottleneck resnet, conv5 dilated "
+                           f"{det_cfg.conv5_dilation}"),
+            ComponentFlops("detect/roi_align", psroi_flops(hf, wf, c + 4, k, n_rois), SIMT,
+                           f"{n_rois} rois/frame, PS-ROI pooling {k}x{k} and voting"),
+            ComponentFlops("detect/head", conv2d(hf, wf, 1, 1, det_cfg.stage_features[-1], red)
+                           + conv2d(hf, wf, 1, 1, red, maps), MATMUL,
+                           f"1x1 reduction to {red}, {maps} maps"),
+        ]
+    bb = det_cfg.backbone
+    hf, wf, cf = h // 16, w // 16, bb.stage_features[-1]
+    return [
+        ComponentFlops("detect/backbone", backbone_flops(bb, h, w), MATMUL,
+                       f"@ {h}x{w}, stride-16 resnet"),
+        ComponentFlops("detect/roi_align", roi_align_flops(hf, wf, cf, det_cfg.roi_pool, n_rois),
+                       MATMUL, f"{n_rois} rois/frame, separable bilinear matmuls"),
+        ComponentFlops("detect/head",
+                       rcnn_head_flops(det_cfg.roi_pool, cf, det_cfg.head_hidden, c, n_rois),
+                       MATMUL, f"2x dense({det_cfg.head_hidden}) + cls/bbox"),
+    ]
 
 
 def tracker_feat_flops(trk_cfg, h: int, w: int) -> float:
@@ -159,20 +226,11 @@ def fused_dispatch_flops(det_cfg, trk_cfg, fused_cfg, t: int, n_rois: int,
     of T frames and R proposals a frame (``bench.py``'s shapes)."""
     h, w = fused_cfg.image_hw
     c = det_cfg.num_classes
-    bb = det_cfg.backbone
-    hf, wf = h // 16, w // 16
-    cf = bb.stage_features[-1]
     t_trk = -(-t // fused_cfg.track_stride)
     comps = [
-        ComponentFlops("detect/backbone", t * backbone_flops(bb, h, w), MATMUL,
-                       f"{t} frames @ {h}x{w}, stride-16 resnet"),
-        ComponentFlops("detect/roi_align",
-                       t * roi_align_flops(hf, wf, cf, det_cfg.roi_pool, n_rois), MATMUL,
-                       f"{n_rois} rois/frame, separable bilinear matmuls"),
-        ComponentFlops("detect/head",
-                       t * rcnn_head_flops(det_cfg.roi_pool, cf, det_cfg.head_hidden, c,
-                                           n_rois),
-                       MATMUL, f"2x dense({det_cfg.head_hidden}) + cls/bbox"),
+        ComponentFlops(x.name, t * x.flops, x.unit, f"{t} frames {x.note}" if i == 0 else x.note)
+        for i, x in enumerate(detect_flops(det_cfg, h, w, n_rois))
+    ] + [
         ComponentFlops("track/features", t_trk * tracker_feat_flops(trk_cfg, h, w), MATMUL,
                        f"dense tracker conv features, every {fused_cfg.track_stride}-th frame"
                        if fused_cfg.track_stride > 1

@@ -4,7 +4,8 @@
 card is present, CUDA activity) into a directory as a Chrome trace, which
 Perfetto opens; the program's ``record_function`` spans (``runner.<part>``,
 ``fused.pipeline`` and ``fused.<stage>``, ``stream.<stage>``,
-``track.<stage>``) name its ranges.
+``track.<stage>``, and R-FCN's ``detect.backbone``, ``detect.score_maps``
+and ``detect.psroi`` inside a detection step) name its ranges.
 """
 
 from __future__ import annotations

@@ -14,8 +14,8 @@ the port flattens its pooled (P, P, C) features, so a transpose suffices.
 conv transposes move elements and change no value).
 
 ``init_detector`` / ``init_tracker`` draw fresh weights the way Flax does
-(lecun-normal fan-in, truncated at ±2σ; zero biases; unit GroupNorm scales)
-from a ``torch.Generator``. They cannot give Flax's numbers: the parity
+(lecun-normal fan-in, truncated at ±2σ; zero biases; unit GroupNorm scales,
+and R-FCN's BN affines set to the identity) from a ``torch.Generator``. They cannot give Flax's numbers: the parity
 tests always use converted weights.
 """
 
@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from vdetlib_tpu_torch.nn.backbone import GroupNorm
-from vdetlib_tpu_torch.nn.detector import Detector, DetectorConfig
+from vdetlib_tpu_torch.nn.presets import build_detector
+from vdetlib_tpu_torch.nn.rfcn import Affine
 from vdetlib_tpu_torch.nn.tracker_net import TrackerConfig, TrackerNet
 
 __all__ = [
@@ -118,7 +119,8 @@ def adam_state_from_optax(count, mu, nu, state_from_flax, model: nn.Module,
 
 
 def _lecun_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Flax defaults: lecun-normal kernels (truncated ±2σ), zero biases, unit GN scales."""
+    """Flax defaults: lecun-normal kernels (truncated ±2σ), zero biases, unit GN
+    scales; R-FCN's BN affines unit scales and zero shifts."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -128,19 +130,21 @@ def _lecun_init_(module: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-        elif isinstance(m, GroupNorm):
+        elif isinstance(m, (GroupNorm, Affine)):
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
 
-def init_detector(cfg: DetectorConfig, generator: torch.Generator | None = None,
-                  device="cuda") -> Detector:
-    """A ``Detector`` with Flax-style random weights drawn from ``generator``.
+def init_detector(cfg, generator: torch.Generator | None = None,
+                  device="cuda") -> nn.Module:
+    """The detector of ``cfg`` (a ``DetectorConfig`` or an ``RFCNConfig``,
+    ``nn/presets.py::build_detector``) with Flax-style random weights drawn
+    from ``generator``.
 
     On the card unless the caller asks for another device; without a card
     the default raises (it never moves to the CPU by itself)."""
-    model = Detector(cfg)
+    model = build_detector(cfg)
     _lecun_init_(model, generator or torch.Generator().manual_seed(0))
     return model.to(device).eval()
 
